@@ -1,9 +1,9 @@
-"""tpu-diffmpc: a TPU-native differentiable-MPC engine.
+"""tpu-diffmpc: a differentiable-MPC engine for accelerators (NVIDIA GPUs).
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of
 ``pfnet-research/chainer-differentiable-mpc`` (Amos et al., NeurIPS 2018
-differentiable MPC) — see SURVEY.md for the reference analysis and the
-TPU-first design rationale.
+differentiable MPC) — see SURVEY.md for the reference analysis and
+docs/DESIGN.md for the design rationale.
 """
 
 from .mpc import MPC, MPCInfo, MPCSolution, mpc_solve

@@ -1,14 +1,16 @@
 """Ahead-of-time export of MPC solve programs (``jax.export``).
 
 Serving deployment support (SURVEY.md §5.4 — the reference's deployment
-story is per-process Python; a TPU fleet wants a build-once artifact): a
-solve program — config, cost, dynamics, bounds, batch shape all fixed — is
-serialized as a StableHLO artifact (Mosaic kernel custom-calls embedded)
-that a serving process loads and calls WITHOUT the model/config Python or
-retracing. Honest scope: deserialization skips tracing/lowering, and the
-backend compile of the artifact is cached by the persistent compilation
-cache (``JAX_COMPILATION_CACHE_DIR``) like any program; the artifact is a
-versioned deployment unit, not a compile-time bypass.
+story is per-process Python): a solve program — config, cost, dynamics,
+bounds, batch shape all fixed — is serialized as a StableHLO artifact
+(Triton kernel custom calls embedded) that a serving process loads and
+calls WITHOUT the model/config Python or retracing. Honest scope:
+deserialization skips tracing/lowering, and the backend compile of the
+artifact is cached by the persistent compilation cache
+(``JAX_COMPILATION_CACHE_DIR``) like any program; the artifact is a
+versioned deployment unit, not a compile-time bypass. The Triton custom
+call is outside ``jax.export``'s compatibility guarantee, so an artifact
+records the JAX version that built it and loads only under that version.
 
 Runtime inputs are opt-in and positional, in this order:
 ``f(x_init[, u_init][, params])`` —
@@ -25,9 +27,12 @@ Runtime inputs are opt-in and positional, in this order:
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
+import os
 import struct
+import sys
 from typing import Optional
 
 import jax
@@ -37,7 +42,7 @@ from jax import export as _jexport
 from .mpc import MPCInfo, MPCSolution, mpc_solve
 from .types import MPCConfig
 
-# Self-describing artifact container (VERDICT r4 #4): a serving fleet must
+# Self-describing artifact container: a serving fleet must
 # be able to validate an artifact — which opt-in positional inputs it
 # takes, what config/bounds were baked, what library version built it —
 # WITHOUT calling it. Layout: MAGIC | u32 manifest length (big-endian) |
@@ -45,6 +50,7 @@ from .types import MPCConfig
 # manifest artifacts) are still loadable; their ``.manifest`` is None.
 _MAGIC = b"DMPCAOT1"
 _FORMAT_VERSION = 1
+_TRITON_CALL = "__gpu$xla.gpu.triton"
 
 # The artifact's output tree contains these NamedTuples; their treedefs
 # must be serializable (and re-registered identically at load — importing
@@ -56,6 +62,26 @@ for _nt in (MPCSolution, MPCInfo):
         )
     except ValueError:  # already registered (re-import / reload)
         pass
+
+
+def _ensure_flatbuffers() -> None:
+    """jax.export's (de)serializer imports ``flatbuffers``, which JAX does
+    not require (the ``aot`` extra installs it). Where it is missing, load
+    the vendored copy (``_vendor/README.md``) under that name, once, just
+    before the first (de)serialization."""
+    try:
+        import flatbuffers  # noqa: F401
+    except ImportError:
+        import importlib.util
+
+        fb_dir = os.path.join(os.path.dirname(__file__), "_vendor", "flatbuffers")
+        spec = importlib.util.spec_from_file_location(
+            "flatbuffers", os.path.join(fb_dir, "__init__.py"),
+            submodule_search_locations=[fb_dir],
+        )
+        # registered before it runs: its own relative imports look it up
+        sys.modules["flatbuffers"] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules["flatbuffers"])
 
 
 def export_solve(
@@ -75,81 +101,70 @@ def export_solve(
     """Serialize the solve program for batch size ``B`` to bytes.
 
     ``platforms`` passes through to ``jax.export.export`` (e.g.
-    ``['tpu']`` to cross-lower from a CPU build host); default = the
-    current backend. Cross-lowering for a pure-TPU target forces the
-    fused Pallas dispatch: ``use_pallas=None`` resolves from the devices
-    in the computation, which on a CPU build host would silently bake
-    the (correct but far slower) XLA orchestration into the TPU artifact
-    — verified on hardware that the CPU-built fused artifact is bitwise
-    identical to the chip-built one (scripts/check_aot_tpu.py).
+    ``['cuda']`` to cross-lower from a CPU build host); default = the
+    current backend. With ``use_pallas=None`` the solver path follows the
+    export target through the platform table
+    (:func:`diffmpc_tpu.ops.lqr_step.use_kernels`), not the build host:
+    a CUDA artifact built on a CPU host carries the Triton kernels.
 
     ``mesh``: a 1-D ``jax.sharding.Mesh`` — exports the MULTI-DEVICE
     program with the scenario batch (and the parameter rows of a
     per-scenario model, per ``dx.param_batch_shape``) sharded over its
     axis; the artifact records the device count and runs on a same-shape
     mesh at load. Shared parameter leaves are replicated. Two sharded
-    forms (VERDICT r4 missing #1):
+    forms:
 
     - **fused shard_map** (``use_pallas=True``, or ``None`` resolving to
-      a TPU target): the whole solve is wrapped in ``jax.shard_map`` —
-      manual SPMD, so the Mosaic mega-kernel needs NO GSPMD partitioning
-      rule; each device runs the fused kernel on its batch shard. This is
-      the Pallas-speed multi-chip serving artifact.
+      a GPU target): the whole solve is wrapped in ``jax.shard_map`` —
+      manual SPMD, so the mega-kernel needs NO GSPMD partitioning rule;
+      each device runs the fused kernel on its batch shard.
     - **GSPMD XLA** (``use_pallas=False``, or ``None`` resolving to a
       CPU target): the XLA orchestration with ``NamedSharding`` inputs,
-      partitioned by GSPMD (a bare Mosaic custom call under GSPMD would
-      replicate the batch per device — the r4 rejection; shard_map is how
-      that objection is dodged, not overridden).
+      partitioned by GSPMD (a bare kernel custom call under GSPMD would
+      replicate the batch per device; shard_map avoids that).
     """
-    import dataclasses
+    from .ops.lqr_step import use_kernels
 
     explicit_pallas = config.use_pallas is True
-    if mesh is not None:
-        if config.use_pallas is None:
-            target = (
-                str(platforms[0]).lower()
-                if platforms
-                else mesh.devices.flat[0].platform
-            )
-            config = dataclasses.replace(
-                config, use_pallas=target not in ("cpu",)
-            )
-        if config.use_pallas:
-            # The manifest's mesh form must reflect the DISPATCH, not the
-            # knob: a config the mega-kernel rejects (non-fusable dx,
-            # FINITE_DIFF, VMEM budget, non-quadratic cost, no box) would
-            # silently run the XLA path inside an unnecessary shard_map
-            # while the manifest claimed 'shard_map_fused'. Gate on the
-            # real predicate with the PER-DEVICE batch.
-            from .mpc import _would_use_fused
-            from .types import LinDx, QuadCost
+    if config.use_pallas is None:
+        if platforms:
+            targets = list(platforms)
+        elif mesh is not None:
+            targets = [mesh.devices.flat[0].platform]
+        else:
+            targets = [None]  # the tracing default
+        config = dataclasses.replace(
+            config,
+            use_pallas=all(
+                use_kernels(None, config.pallas_interpret, p) for p in targets
+            ),
+        )
+    if mesh is not None and config.use_pallas:
+        # The manifest's mesh form must reflect the DISPATCH, not the
+        # knob: a config the mega-kernel rejects (non-fusable dx,
+        # FINITE_DIFF, non-quadratic cost, no box) would silently run the
+        # XLA path inside an unnecessary shard_map while the manifest
+        # claimed 'shard_map_fused'.
+        from .mpc import _would_use_fused
+        from .types import LinDx, QuadCost
 
-            n_dev = mesh.devices.size
-            B_local = B // n_dev if B % n_dev == 0 else B
-            can_fuse = _would_use_fused(
-                config, B_local, dx,
-                is_quad=isinstance(cost, QuadCost),
-                constrained=u_lower is not None,
-                is_lin=isinstance(dx, LinDx),
-            )
-            if not can_fuse:
-                if explicit_pallas:
-                    raise ValueError(
-                        "mesh= export with use_pallas=True, but the fused "
-                        "mega-kernel cannot engage for this configuration "
-                        "(requires QuadCost + box bounds + an entries_step/"
-                        "kernel_params dynamics model, grad_method != "
-                        "FINITE_DIFF, verbose <= 0, and the solve within "
-                        "the VMEM budget). Pass use_pallas=False (or None) "
-                        "for the GSPMD XLA artifact instead."
-                    )
-                config = dataclasses.replace(config, use_pallas=False)
-    elif (
-        platforms is not None
-        and config.use_pallas is None
-        and all(str(p).lower() == "tpu" for p in platforms)
-    ):
-        config = dataclasses.replace(config, use_pallas=True)
+        can_fuse = _would_use_fused(
+            config, dx,
+            is_quad=isinstance(cost, QuadCost),
+            constrained=u_lower is not None,
+            is_lin=isinstance(dx, LinDx),
+        )
+        if not can_fuse:
+            if explicit_pallas:
+                raise ValueError(
+                    "mesh= export with use_pallas=True, but the fused "
+                    "mega-kernel cannot engage for this configuration "
+                    "(requires QuadCost + box bounds + an entries_step/"
+                    "kernel_params dynamics model, grad_method != "
+                    "FINITE_DIFF and verbose <= 0). Pass use_pallas=False "
+                    "(or None) for the GSPMD XLA artifact instead."
+                )
+            config = dataclasses.replace(config, use_pallas=False)
     T, n, m = config.T, config.n_state, config.n_ctrl
     dtype = config.dtype
 
@@ -215,13 +230,11 @@ def export_solve(
     # not depend on keyword plumbing that the loading process can't see.
     if mesh is not None and config.use_pallas:
         # Fused multi-device artifact: manual SPMD via shard_map — each
-        # device runs the Mosaic mega-kernel on its batch shard, so no
-        # GSPMD partitioning rule is needed (the r4 blocker applied only
-        # to GSPMD-sharding a bare custom call). check_vma=False is the
-        # documented Pallas-under-shard_map requirement (CLAUDE.md "VMA-
-        # checked Pallas composition"); verified bitwise vs the unsharded
-        # fused solve in tests/test_aot.py and on hardware by
-        # scripts/check_aot_tpu.py --sharded.
+        # device runs the mega-kernel on its batch shard, so no GSPMD
+        # partitioning rule is needed. check_vma=False is the documented
+        # Pallas-under-shard_map requirement (CLAUDE.md "VMA-checked
+        # Pallas composition"); verified bitwise vs the unsharded fused
+        # solve in tests/test_aot.py and by chip_smoke.py --four-cards.
         from jax.sharding import PartitionSpec
 
         n_dev = mesh.devices.size
@@ -251,6 +264,7 @@ def export_solve(
                 mean_alpha=batched,
                 clamp_frac=batched,
                 qp_iters=batched,
+                iters=batched,
             ),
         )
 
@@ -293,7 +307,15 @@ def export_solve(
         fn, args = (lambda x: solve(x)), (x_s,)
 
     kw = {} if platforms is None else {"platforms": platforms}
+    if config.use_pallas:
+        # The Triton kernel call is not on jax.export's list of custom
+        # calls with a stability guarantee; the manifest's jax_version
+        # (checked by load_solve) stands in for that guarantee.
+        kw["disabled_checks"] = [
+            _jexport.DisabledSafetyCheck.custom_call(_TRITON_CALL)
+        ]
     exp = _jexport.export(jax.jit(fn), **kw)(*args)
+    _ensure_flatbuffers()
     payload = exp.serialize(vjp_order=vjp_order)
 
     input_names = ["x_init"]
@@ -381,6 +403,10 @@ def read_manifest(blob: bytes) -> Optional[dict]:
             f"but only {len(blob) - hdr} follow the header"
         )
     manifest = json.loads(blob[hdr : hdr + mlen])
+    if not isinstance(manifest, dict) or "format_version" not in manifest:
+        raise ValueError(
+            "corrupt artifact: the manifest has no format_version"
+        )
     if manifest["format_version"] > _FORMAT_VERSION:
         raise ValueError(
             f"artifact manifest format_version {manifest['format_version']} "
@@ -400,11 +426,19 @@ def load_solve(blob: bytes):
     self-description (None for pre-manifest blobs); a wrong-arity call
     fails eagerly with the expected input names."""
     manifest = read_manifest(blob)
+    if manifest is not None and manifest.get("jax_version") != jax.__version__:
+        raise ValueError(
+            f"artifact was built with jax {manifest.get('jax_version')} but "
+            f"this process runs jax {jax.__version__}; its Triton kernel "
+            "calls carry no cross-version guarantee — rebuild the artifact "
+            "with this jax"
+        )
     if manifest is not None:
         (mlen,) = struct.unpack(">I", blob[len(_MAGIC) : len(_MAGIC) + 4])
         payload = blob[len(_MAGIC) + 4 + mlen :]
     else:
         payload = blob
+    _ensure_flatbuffers()
     exp = _jexport.deserialize(payload)
     names = manifest["input_names"] if manifest is not None else None
 

@@ -2,8 +2,8 @@
 
 Capability parity: the reference's ``mpc/dynamics.py`` (SURVEY.md §2.1 C5) —
 ``AffineDynamics``, ``NNDynamics`` (MLP state-transition model) and
-``CtrlPassthroughDynamics``. TPU-first: every model is a frozen
-``flax.struct`` pytree whose parameters flow through ``jit``/``grad``/
+``CtrlPassthroughDynamics``. Every model is a frozen dataclass pytree
+(:mod:`diffmpc_tpu.utils.pytree`) whose parameters flow through ``jit``/``grad``/
 ``vmap``/``shard_map``; ``forward`` broadcasts over arbitrary leading batch
 dims and ``grad_input`` returns the state/control Jacobians ``(A, B)`` used
 for ``GradMethods.ANALYTIC`` linearization in the iLQR loop.
@@ -15,7 +15,7 @@ from typing import Callable, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import pytree as struct
 
 from ..utils.batch import PRECISION
 
@@ -48,8 +48,8 @@ class Dynamics:
     @property
     def kernel_fusable(self) -> bool:
         """Whether ``entries_step`` (if present) may run inside the fused
-        Pallas kernels. Per-scenario params ride them via a VMEM params
-        tile; pytree-params models override with their own criteria."""
+        Pallas kernels. Per-scenario params ride them as one vector per
+        parameter per program tile; pytree-params models override with their own criteria."""
         return True
 
     def grad_input(self, x, u):
@@ -179,10 +179,10 @@ class NNDynamics(Dynamics):
         return x + h if self.residual else h
 
     # ------------------------------------------------------------------
-    # Kernel fusion protocol (ops/pallas/{ilqr,rollout}.py): lets learned-
-    # dynamics problems (NN imitation, SURVEY.md §3.5) ride the fused
-    # mega-kernel. Weights live as scalars in SMEM and each hidden unit is
-    # one (S, 128) batch tile, so this is only profitable (and compilable in
+    # Kernel fusion protocol (ops/pallas/ilqr.py): lets learned-dynamics
+    # problems (NN imitation, SURVEY.md §3.5) ride the fused mega-kernel.
+    # Weights are scalars every program reads and each hidden unit is one
+    # per-scenario vector, so this is only profitable (and compilable in
     # reasonable time — the layer loops unroll) for small policies/models;
     # `kernel_fusable` gates the dispatch accordingly.
     # ------------------------------------------------------------------
@@ -201,7 +201,7 @@ class NNDynamics(Dynamics):
         )
 
     def kernel_params(self):
-        """Flat parameter vector for SMEM: per layer, row-major W then b —
+        """Flat parameter vector for the kernels: per layer, row-major W then b —
         must match :meth:`entries_step`'s unpacking order."""
         parts = []
         for w, b in zip(self.weights, self.biases):
@@ -210,10 +210,10 @@ class NNDynamics(Dynamics):
         return jnp.concatenate(parts)
 
     def entries_step(self, params, x_entries, u_entries):
-        """Entry-wise (batch-minor) MLP step: each entry is an ``(S, 128)``
-        tile over scenarios; ``params`` is the flat scalar list from
+        """Entry-wise (batch-minor) MLP step: each entry is a vector over
+        scenarios; ``params`` is the flat scalar list from
         :meth:`kernel_params`. Mathematically identical to :meth:`forward`
-        (all ops elementwise on tiles — Mosaic-lowerable)."""
+        (all ops elementwise on per-scenario vectors)."""
         h = list(x_entries) + list(u_entries)
         n_x = len(x_entries)
         act = _act(self.activation)

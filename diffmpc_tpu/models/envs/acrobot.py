@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ...utils import pytree as struct
 
 from ...utils.batch import bclamp
 from ..dynamics import Dynamics
@@ -65,7 +65,7 @@ class AcrobotDx(Dynamics):
 
         ``p`` is the 4-tuple ``(m1, m2, l1, l2)`` — passed explicitly so
         :meth:`forward` (trailing-axis param slices) and
-        :meth:`entries_step` ((S, 128) param tiles) share ONE copy of the
+        :meth:`entries_step` (per-scenario vectors) share ONE copy of the
         sign-critical rigid-body math (the idiom the fused Riccati kernels
         use for their formula helpers)."""
         m1, m2, l1, l2 = p
@@ -121,7 +121,7 @@ class AcrobotDx(Dynamics):
         """Entry-wise (batch-minor) step for Pallas fusion: identical math
         to :meth:`forward` via the shared :meth:`_accelerations`, with the
         angle updates as rotation identities instead of ``arctan2``
-        (not lowerable in Mosaic — CLAUDE.md)."""
+        (kept out of the kernels — CLAUDE.md)."""
         c1, s1, c2, s2, om1, om2 = x_entries
         tau = u_entries[0]
         if self.clamp_ctrl:

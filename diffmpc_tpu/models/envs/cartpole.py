@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ...utils import pytree as struct
 
 from ...utils.batch import bclamp
 from ..dynamics import Dynamics
@@ -69,7 +69,7 @@ class CartpoleDx(Dynamics):
     def entries_step(self, params, x_entries, u_entries):
         """Entry-wise (batch-minor) dynamics step for Pallas kernel fusion;
         mathematically identical to :meth:`forward` (angle update via the
-        rotation identity — ``arctan2`` is not lowerable in Mosaic TPU)."""
+        rotation identity — ``arctan2`` is kept out of the kernels)."""
         g, m_cart, m_pole, l = params
         total_mass = m_cart + m_pole
         polemass_l = m_pole * l

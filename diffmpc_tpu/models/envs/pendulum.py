@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ...utils import pytree as struct
 
 from ...utils.batch import bclamp
 from ..dynamics import Dynamics
@@ -66,11 +66,11 @@ class PendulumDx(Dynamics):
 
     def entries_step(self, params, x_entries, u_entries):
         """Entry-wise (batch-minor) dynamics step for kernel fusion: each
-        entry is an ``(S, 128)`` tile over scenarios; ``params`` is a list of
+        entry is a vector over scenarios; ``params`` is a list of
         scalars. Mathematically identical to :meth:`forward`, but the angle
         update uses the rotation identity
         ``(cos, sin)(th + d) = (cos th cos d - sin th sin d, ...)`` instead
-        of ``arctan2`` (not lowerable in Mosaic TPU)."""
+        of ``arctan2`` (kept out of the kernels — CLAUDE.md)."""
         g, m, l = params[0], params[1], params[2]
         cos_th, sin_th, thdot = x_entries
         uu = u_entries[0]

@@ -23,7 +23,7 @@ never exercise that).
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ...utils import pytree as struct
 
 from ...utils.batch import bclamp
 from ..dynamics import Dynamics
@@ -86,8 +86,8 @@ class QuadrotorDx(Dynamics):
 
     def entries_step(self, params, x_entries, u_entries):
         """Entry-wise (batch-minor) step for Pallas kernel fusion — each
-        entry an (S, 128) tile; identical math to :meth:`forward` (sin/cos
-        lower fine in Mosaic; only arctan2 is banned)."""
+        entry a per-scenario vector; identical math to :meth:`forward` (sin/cos
+        lower in the kernel; arctan2 is avoided)."""
         g, mass, arm, inertia = params
         px, pz, phi, vx, vz, om = x_entries
         u1, u2 = u_entries

@@ -19,7 +19,7 @@ semi-implicit Euler step
     py'  = py + dt * v' sin(psi')
 
 ``tan`` is written ``sin/cos`` (|delta| <= 0.5 rad keeps cos > 0.87) so
-:meth:`entries_step` lowers in Mosaic (no ``tan``/``atan2`` — CLAUDE.md).
+:meth:`entries_step` uses only kernel-lowerable ops (no ``tan``/``atan2``).
 The speed clamp uses the boundary-strict :func:`~diffmpc_tpu.utils.
 batch.bclamp` (full Jacobian at v = 0 and v = v_max).
 
@@ -39,7 +39,7 @@ straight-line closed form and an f64 oracle transcription.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ...utils import pytree as struct
 
 from ...utils.batch import bclamp
 from ..dynamics import Dynamics
@@ -77,7 +77,7 @@ class VehicleDx(Dynamics):
             a = bclamp(a, -self.max_brake, self.max_accel)
             delta = bclamp(delta, -self.max_steer, self.max_steer)
         nv = bclamp(v + self.dt * (a - c_d * v), 0.0, self.max_speed)
-        # tan via sin/cos: Mosaic-lowerable, pole-free for |delta| <= 0.5
+        # tan via sin/cos: kernel-lowerable, pole-free for |delta| <= 0.5
         tan_d = jnp.sin(delta) / jnp.cos(delta)
         npsi = psi + self.dt * nv * tan_d / L
         npx = px + self.dt * nv * jnp.cos(npsi)
@@ -97,7 +97,7 @@ class VehicleDx(Dynamics):
 
     def entries_step(self, params, x_entries, u_entries):
         """Entry-wise (batch-minor) step for Pallas kernel fusion — each
-        entry an (S, 128) tile; identical math via :meth:`_step`."""
+        entry a per-scenario vector; identical math via :meth:`_step`."""
         L, c_d = params
         px, py, psi, v = x_entries
         a, delta = u_entries

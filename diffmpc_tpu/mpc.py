@@ -10,7 +10,7 @@ control-augmented formulation, and fixed-point-only gradient semantics
 (trajectories detached between iterations; gradients flow solely through the
 final analytic-KKT LQR step).
 
-TPU-first redesign (SURVEY.md §7 stage 6):
+Redesign (SURVEY.md §7 stage 6):
 
 - the outer loop is a ``lax.while_loop`` with per-batch masked bookkeeping —
   data-dependent Python control flow (early breaks, per-element
@@ -28,7 +28,6 @@ TPU-first redesign (SURVEY.md §7 stage 6):
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Callable, NamedTuple, Optional, Union
 
 import jax
@@ -60,6 +59,9 @@ class MPCInfo(NamedTuple):
     # meaning on BOTH the XLA and fused paths (pinned by
     # tests/test_quadrotor.py::test_qp_iters_semantics_agree_across_paths).
     qp_iters: jnp.ndarray
+    # (B,) int32 — iLQR iterations this scenario ran before it froze
+    # (n_iters is their max); the same count on both paths
+    iters: jnp.ndarray
 
 
 class MPCSolution(NamedTuple):
@@ -213,17 +215,14 @@ def _augment_slew(config: MPCConfig, x_init, cost, dx, u_init, u_lower, u_upper,
     return config_aug, x_init_aug, cost_aug, dx_aug
 
 
-def _would_use_fused(config, B, dx, *, is_quad, constrained, is_lin):
+def _would_use_fused(config, dx, *, is_quad, constrained, is_lin):
     """The single mega-kernel dispatch predicate (also used by tests to
-    assert a configuration genuinely engages the fused path — past the
-    VMEM budget ``use_pallas=True`` silently takes the XLA orchestration).
-    There is no batch floor: the kernel pads any B up to one (8, 128)
-    tile, and the padded kernel beats the XLA path at every measured
-    batch size down to B=1 on hardware (0.74-0.90x fused/xla at B<=64,
-    scripts/ab_small_batch.py, 2026-08-18)."""
-    from .ops.lqr_step import _resolve_use_pallas
+    assert a configuration genuinely engages the fused path). There is no
+    batch floor and no horizon limit: the kernel pads any B up to one
+    tile and keeps its working set in device memory at any T."""
+    from .ops.lqr_step import use_kernels
 
-    if not (
+    return bool(
         is_quad
         and constrained
         and not is_lin
@@ -232,22 +231,8 @@ def _would_use_fused(config, B, dx, *, is_quad, constrained, is_lin):
         and getattr(dx, "kernel_fusable", True)
         and config.grad_method != GradMethods.FINITE_DIFF
         and config.verbose <= 0
-        and _resolve_use_pallas(config.use_pallas)
-    ):
-        return False
-    from .ops.pallas.riccati import ilqr_scratch_bytes, fits_vmem
-
-    n, m = config.n_state, config.n_ctrl
-    extra = ilqr_scratch_bytes(config.T, n, m)
-    if os.environ.get("DIFFMPC_HOIST_LIN", "") == "1":
-        # gate/pick/lift must share one footprint estimate (the
-        # rollout_scratch_bytes invariant): the hoisted pre-pass adds F/cd
-        # scratch the plain estimate does not know about
-        from .ops.pallas.ilqr import hoist_lin_extra_bytes
-        from .ops.pallas.riccati import TILE_B
-
-        extra += hoist_lin_extra_bytes(config.T, n, m, TILE_B)
-    return fits_vmem(config.T, n, m, extra=extra)
+        and use_kernels(config.use_pallas, config.pallas_interpret)
+    )
 
 
 def _check_param_batch(dx, B):
@@ -416,7 +401,7 @@ def mpc_solve(
             u0_warm = jnp.broadcast_to(u0_warm[:, None], (T, B, m))
 
     use_fused = _would_use_fused(
-        config, B, dx_sg, is_quad=is_quad, constrained=constrained, is_lin=is_lin
+        config, dx_sg, is_quad=is_quad, constrained=constrained, is_lin=is_lin
     )
 
     if use_fused:
@@ -440,11 +425,6 @@ def mpc_solve(
             best_cost_eps=config.best_cost_eps,
             not_improved_lim=config.not_improved_lim,
             interpret=config.pallas_interpret,
-            # DIFFMPC_HOIST_LIN=1 (trace-time, like DIFFMPC_PNQP_ENUM):
-            # data-parallel linearization pre-pass — measured +6.5% for
-            # MLP dynamics, wash for analytic envs (DESIGN.md §3,
-            # scripts/ab_hoist_lin.py); opt-in below the 10% default bar.
-            hoist_lin=os.environ.get("DIFFMPC_HOIST_LIN", "") == "1",
         )
         best_x, best_u = detach(fr.xs), detach(fr.us)
         converged = fr.converged
@@ -463,6 +443,7 @@ def mpc_solve(
                 jnp.mean(at_bound.astype(dtype), axis=(0, 2)), 0.0, 1.0
             ),
             qp_iters=fr.qp_iters,
+            iters=fr.n_iters,
         )
     else:
         # Initial trajectory: roll u_init (or zeros) through the dynamics.
@@ -505,19 +486,10 @@ def mpc_solve(
             alpha: jnp.ndarray
             clamp_frac: jnp.ndarray
             qp_iters: jnp.ndarray
+            iters: jnp.ndarray
 
         def cond(s: Carry):
             return (s.i < config.lqr_iter) & ~jnp.all(s.done)
-
-        dyn_kernel = (
-            dx_sg
-            if (
-                not is_lin
-                and hasattr(dx_sg, "entries_step")
-                and getattr(dx_sg, "kernel_fusable", True)
-            )
-            else None
-        )
 
         def body(s: Carry) -> Carry:
             F, f = linearize_sg(s.x, s.u)
@@ -535,13 +507,17 @@ def mpc_solve(
                 u_upper=hi_sg,
                 dynamics_fn=dynamics_fn,
                 cost_fn=traj_cost_fn,
-                dyn_kernel=dyn_kernel,
             )
+            # Frozen elements keep their state, best_* included (otherwise a
+            # frozen element's answer would depend on whether the rest of
+            # the batch keeps the loop running); active ones move to the new
+            # trajectory (even if worse — best_* preserves the winner).
+            act = ~s.done
             improvement = s.best_obj - out.objs
             # best tracks any strict improvement; the significance threshold
             # best_cost_eps only drives the not-improved counter (ref semantics).
-            improved = out.objs < s.best_obj
-            improved_sig = out.objs < s.best_obj - config.best_cost_eps
+            improved = act & (out.objs < s.best_obj)
+            improved_sig = act & (out.objs < s.best_obj - config.best_cost_eps)
             best_obj = jnp.where(improved, out.objs, s.best_obj)
             sel = improved[None, :, None]
             best_x = jnp.where(sel, out.xs, s.best_x)
@@ -550,9 +526,6 @@ def mpc_solve(
             newly_done = (improvement < config.eps) | (
                 n_not_improved >= config.not_improved_lim
             )
-            # Frozen elements keep their state; active ones move to the new
-            # trajectory (even if worse — best_* preserves the winner).
-            act = ~s.done
             sel_a = act[None, :, None]
             x = jnp.where(sel_a, out.xs, s.x)
             u = jnp.where(sel_a, out.us, s.u)
@@ -590,12 +563,13 @@ def mpc_solve(
                 qp_iters=jnp.where(
                     act, jnp.mean(out.n_qp_iter.astype(dtype), axis=0), s.qp_iters
                 ),
+                iters=s.iters + act.astype(jnp.int32),
             )
 
         # Literal-initialized carries are VMA-promoted against x_init so the
         # while_loop type-checks under shard_map(check_vma=True) — see
         # utils.batch.match_vma (no-op outside a manual-axes context).
-        # dx_sg is always a pytree (LinDx or a flax-struct Dynamics model);
+        # dx_sg is always a pytree (LinDx or a dataclass Dynamics model);
         # a callable cost is not, so it is only included when QuadCost.
         vma_refs = [x_init_sg, dx_sg]
         if is_quad:
@@ -618,6 +592,7 @@ def mpc_solve(
             alpha=mv(jnp.ones((B,), dtype)),
             clamp_frac=mv(jnp.zeros((B,), dtype)),
             qp_iters=mv(jnp.zeros((B,), dtype)),
+            iters=mv(jnp.zeros((B,), jnp.int32)),
         )
         final = jax.lax.while_loop(cond, body, init)
         best_x, best_u = detach(final.best_x), detach(final.best_u)
@@ -628,6 +603,7 @@ def mpc_solve(
             alpha=final.alpha,
             clamp_frac=final.clamp_frac,
             qp_iters=final.qp_iters,
+            iters=final.iters,
         )
 
 
@@ -684,6 +660,7 @@ def mpc_solve(
         mean_alpha=stats["alpha"],
         clamp_frac=stats["clamp_frac"],
         qp_iters=stats["qp_iters"],
+        iters=stats["iters"],
     )
     return MPCSolution(xs, us, objs, info)
 

@@ -4,8 +4,8 @@ The reference's horizon loop is sequential Python, linear in ``T``
 (SURVEY.md §5.7 — "long context" in this domain is a long horizon). The
 Riccati recursion is an associative composition of conditional value
 functions (Sarkka & Garcia-Fernandez, temporal parallelization of LQT;
-PAPERS.md arXiv:1809.06360 / 2405.09197), so on TPU the backward pass can
-run in O(log T) depth:
+PAPERS.md arXiv:1809.06360 / 2405.09197), so the backward pass can run in
+O(log T) depth:
 
 Each step ``t`` contributes the conditional value function
 
@@ -39,10 +39,9 @@ non-associatively, so box problems use the sequential scan / Pallas kernel.
 
 Status (round 2): two deployments.
 
-- Single chip, ``riccati_backward_assoc`` (``lax.associative_scan``):
-  measured on 1x TPU v5 lite, f32 — at production shapes (B >= 256) the
-  sequential ``lax.scan`` path saturates the chip and wins (e.g. T=256:
-  13ms vs 27ms), so it stays OFF by default there.
+- Single device, ``riccati_backward_assoc`` (``lax.associative_scan``):
+  OFF by default; whether it beats the sequential scan at any shape on
+  the GPU is not measured yet (ROADMAP).
 - Time-sharded mesh, :func:`riccati_backward_time_sharded` (SURVEY.md
   §5.7 build (b)): the horizon is block-distributed over a ``('time',)``
   mesh — local sequential suffix-composition, an ``all_gather`` of the D
@@ -211,11 +210,10 @@ def riccati_backward_blocked(
     it wins exactly where the chip is depth-bound (long horizon, small
     ``B``): a T=8192 recursion at B=8 runs 64 combines wide instead of one.
 
-    This is also the hardware ground truth for the time-sharded path: on a
-    real pod each device executes one block's column of this computation
-    plus an ``all_gather`` of D tiny elements, so the single-chip blocked
-    time measured here bounds the per-device critical path from above
-    (VERDICT r2 #7 — measured on TPU by scripts/ab_time_sharded.py).
+    This is also the single-device ground truth for the time-sharded path:
+    on a mesh each device executes one block's column of this computation
+    plus an ``all_gather`` of D tiny elements, so the single-device blocked
+    time bounds the per-device critical path from above.
 
     Contract matches :func:`riccati_backward_assoc` (unconstrained only —
     active box sets couple steps non-associatively). ``T`` must be
@@ -301,7 +299,7 @@ def riccati_backward_time_sharded(
     1. each device sequentially suffix-composes its own ``T/D`` chunk of
        value-function elements (work-efficient local ``lax.scan``),
     2. the ``D`` chunk-total elements are ``all_gather``ed (tiny — one
-       ``(B, n, n)``-sized element per device, riding ICI on a real pod)
+       ``(B, n, n)``-sized element per device)
        and suffix-composed in a length-``D`` scan replicated on every
        device,
     3. each local suffix is combined with the right-neighbor total in one
@@ -390,8 +388,6 @@ def riccati_backward_time_sharded(
         out_specs=(P(time_axis), P(time_axis)),
         check_vma=True,  # round 3: carries VMA-promoted via match_vma; the
         # axis_index-dependent element edits type fine under the checker
-        # (VERDICT r2 weak #5 — this was the one shard_map in the library
-        # that could never run checked)
     )
     K, k = shard(C, c, F, f)
     free = jnp.ones((T, B, m), dtype=bool)

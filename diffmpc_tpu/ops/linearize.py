@@ -2,7 +2,7 @@
 
 Capability parity: the reference's ``mpc/mpc.py: linearize_dynamics`` /
 ``approximate_cost`` (SURVEY.md §3.1) with its ``GradMethods`` variants.
-TPU-first: Jacobians/Hessians are exact vmapped ``jacfwd``/``hessian`` calls
+Under JAX, Jacobians/Hessians are exact vmapped ``jacfwd``/``hessian`` calls
 compiled into the solve — there is no tape, so AUTO_DIFF costs the same as
 ANALYTIC unless the model provides a cheaper closed form.
 """

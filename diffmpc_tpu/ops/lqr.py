@@ -5,7 +5,7 @@ Capability parity: the forward half of the reference's ``mpc/lqr_step.py``
 feedback gains ``K_t`` / feedforward ``k_t`` (with box-DDP projected-Newton
 handling of control limits), followed by a line-searched rollout.
 
-TPU-first redesign (SURVEY.md §7 stages 2/4/5):
+Redesign (SURVEY.md §7 stages 2/4/5):
 
 - the sequential-in-``t`` Python loops become ``lax.scan``s compiled by XLA;
   the whole solve is one fused program, ``vmap``-able over scenarios and
@@ -94,10 +94,8 @@ def riccati_backward(
     # exact optimum of its (masked/box) QP and reg is tiny, the
     # K'Quu K / K'(qu + Quu kt) terms cancel and V' = Qxx + sym(Qxu K),
     # v' = qx + Qxu kt. Sharing the gate keeps the XLA and fused paths
-    # executing the SAME math (CLAUDE.md kernel-equivalence invariant)
-    # and makes scripts/roofline.py's XLA-path flop count model the
-    # kernel's actual work (VERDICT r3 #1). Lazy import: pallas.riccati
-    # module-imports this module.
+    # executing the SAME math (CLAUDE.md kernel-equivalence invariant).
+    # Lazy import: the gate lives with the kernels' entry math.
     from .pallas.riccati import _use_exact_value_update
 
     mode = "box" if box else ("mask" if ctrl_mask is not None else "free")
@@ -302,8 +300,7 @@ def lqr_linesearch_rollout(
     (``lqr_step.py: lqr_forward``: halve alpha until the true cost decreases,
     up to ``max_linesearch_iter`` times). Here the full geometric ladder
     ``alpha_j = decay**j`` is evaluated for all elements in one batched
-    rollout (the ladder is folded into the batch axis — ideal for
-    MXU/VPU utilization), and each element takes the first strictly-improving
+    rollout (the ladder is folded into the batch axis), and each element takes the first strictly-improving
     step, falling back to the smallest alpha exactly like an exhausted
     backtracking loop.
 

@@ -7,7 +7,7 @@ whose backward differentiates the fixed-point KKT conditions analytically
 (O(T B (n+m)) memory, independent of solver iteration count) instead of
 unrolling a tape.
 
-TPU-first redesign: the reference implements this as a define-by-run
+Redesign: the reference implements this as a define-by-run
 FunctionNode with a ``no_op_forward`` mode used to attach gradients to the
 converged trajectory. Here the same split is explicit and functional:
 
@@ -67,81 +67,58 @@ class LqrSpec:
     linesearch_decay: float = 0.2
     max_linesearch_iter: int = 10
     delta_u: Optional[float] = None
-    use_pallas: Optional[bool] = None  # None = auto (TPU yes, CPU no)
-    pallas_interpret: bool = False  # Mosaic interpret mode (CPU-executable)
+    use_pallas: Optional[bool] = None  # None = auto (see use_kernels)
+    pallas_interpret: bool = False  # kernels in interpret mode (CPU)
 
 
-def _kind_to_platform(kind) -> Optional[str]:
-    k = str(kind).lower()
-    if "cpu" in k:
-        return "cpu"
-    if "tpu" in k:
-        return "tpu"
-    if "gpu" in k or "cuda" in k or "rocm" in k:
-        return "gpu"
-    return None
+def _platform_name(name: str) -> str:
+    name = str(name).lower()
+    return "gpu" if name == "cuda" else name
 
 
-def _auto_platform(platform_hint: Optional[str] = None) -> str:
-    """Platform of the devices ACTUALLY in the computation, best-effort.
-
-    Resolution order: (1) an explicit hint (e.g. ``mesh.devices`` platform,
-    passed by callers that hold a concrete mesh); (2) the abstract mesh in
-    the current trace context — under ``shard_map``/``use_mesh`` its
-    ``abstract_device.device_kind`` names the compile target, so a CPU mesh
-    built while a TPU backend is the process default resolves correctly;
-    (3) the process-global ``jax.default_backend()`` — only when nothing
-    device-specific is visible (plain jit onto the default device).
-    """
+def solver_platform(platform_hint: Optional[str] = None) -> str:
+    """Platform of the devices in the computation being traced: an explicit
+    hint (a mesh's device platform, an export target) wins; then a CPU mesh
+    in the trace context (``shard_map`` over CPU devices); then the process
+    default backend."""
     if platform_hint is not None:
-        return platform_hint
-    try:
-        am = jax.sharding.get_abstract_mesh()
-        if not am.empty:
-            p = _kind_to_platform(getattr(am.abstract_device, "device_kind", ""))
-            if p is not None:
-                return p
-    except Exception:
-        pass
-    return jax.default_backend()
+        return _platform_name(platform_hint)
+    am = jax.sharding.get_abstract_mesh()
+    device = None if am.empty else getattr(am, "abstract_device", None)
+    if device is not None and str(device.device_kind).lower() == "cpu":
+        return "cpu"
+    return _platform_name(jax.default_backend())
 
 
-def _resolve_use_pallas(
-    use_pallas: Optional[bool], platform_hint: Optional[str] = None
+def use_kernels(
+    use_pallas: Optional[bool],
+    interpret: bool = False,
+    platform_hint: Optional[str] = None,
 ) -> bool:
-    """Resolve the ``use_pallas=None`` auto mode.
+    """Whether the solve runs the Pallas kernels of ops/pallas/ — the one
+    platform table:
 
-    Auto resolves the target platform from the devices in the computation
-    (:func:`_auto_platform`): the mesh in context under ``shard_map``, else
-    the process default backend. The one remaining blind spot is a plain
-    ``jit`` committed to a non-default device with NO mesh — trace-time code
-    cannot see the committed device; set ``use_pallas`` explicitly in
-    :class:`diffmpc_tpu.types.MPCConfig` / :class:`LqrSpec` there.
+    ========  ==========================================================
+    ``gpu``   Triton kernels
+    ``cpu``   XLA path; kernels only in interpret mode (``interpret``)
+    other     ``ValueError``, never a quiet fallback
+    ========  ==========================================================
+
+    An explicit ``use_pallas`` overrides the auto choice on a supported
+    platform (cross-lowering for CUDA from a CPU host sets it).
     """
-    if use_pallas is not None:
-        return use_pallas
-    return _auto_platform(platform_hint) not in ("cpu",)
-
-
-def _riccati(spec: LqrSpec, C, c, F, f, n_state, **kwargs):
-    """Dispatch between the XLA scan and the Pallas kernels: VMEM-resident
-    fused kernel for short horizons, the HBM-streaming double-buffered
-    kernel for long ones, XLA scan on CPU. No batch floor — the kernels
-    pad any B up to one tile and still beat the XLA path on hardware
-    (scripts/ab_small_batch.py)."""
-    if _resolve_use_pallas(spec.use_pallas):
-        from .pallas.riccati import fits_vmem, riccati_backward_pallas
-
-        T = C.shape[0]
-        m = C.shape[-1] - n_state
-        kwargs.pop("pnqp_eps", None)
-        kwargs["interpret"] = spec.pallas_interpret
-        if fits_vmem(T, n_state, m):
-            return riccati_backward_pallas(C, c, F, f, n_state, **kwargs)
-        from .pallas.riccati_stream import riccati_backward_pallas_stream
-
-        return riccati_backward_pallas_stream(C, c, F, f, n_state, **kwargs)
-    return riccati_backward(C, c, F, f, n_state, **kwargs)
+    platform = solver_platform(platform_hint)
+    if platform == "gpu":
+        auto = True
+    elif platform == "cpu":
+        auto = interpret
+    else:
+        raise ValueError(
+            f"no solver path for platform {platform!r}: supported are 'gpu' "
+            "(Pallas Triton kernels) and 'cpu' (XLA; kernels only in "
+            "interpret mode)"
+        )
+    return auto if use_pallas is None else use_pallas
 
 
 class LqrStepResult(NamedTuple):
@@ -167,7 +144,6 @@ def lqr_step(
     u_upper: Optional[jnp.ndarray] = None,
     dynamics_fn=None,
     cost_fn=None,
-    dyn_kernel=None,
 ) -> LqrStepResult:
     """One LQR/box-DDP step around ``(x_hat, u_hat)`` (SURVEY.md §3.2).
 
@@ -183,8 +159,7 @@ def lqr_step(
     # delta form by construction.
     c_delta = c + bmv(C, tau_hat)
 
-    res = _riccati(
-        spec,
+    res = riccati_backward(
         C,
         c_delta,
         F,
@@ -196,80 +171,24 @@ def lqr_step(
         reg=spec.reg,
         pnqp_iter=spec.pnqp_iter,
     )
-    # The fused Pallas line-search kernel handles quadratic costs with
-    # linear or `entries_step`-fusable dynamics; anything else (callable
-    # costs, opaque user models) takes the XLA ladder.
-    from .pallas.riccati import fits_vmem, rollout_scratch_bytes
-
-    T = C.shape[0]
-    m = C.shape[-1] - n
-    fusable = (
-        _resolve_use_pallas(spec.use_pallas)
-        and cost_fn is None
-        and (dynamics_fn is None or dyn_kernel is not None)
+    ls = lqr_linesearch_rollout(
+        x_init,
+        C,
+        c,
+        F,
+        f,
+        res.K,
+        res.k,
+        x_hat,
+        u_hat,
+        u_lower=u_lower,
+        u_upper=u_upper,
+        delta_u=spec.delta_u,
+        dynamics_fn=dynamics_fn,
+        cost_fn=cost_fn,
+        decay=spec.linesearch_decay,
+        max_iter=spec.max_linesearch_iter,
     )
-    resident = fusable and fits_vmem(T, n, m, extra=rollout_scratch_bytes(T, n, m))
-    if resident:
-        from .pallas.rollout import linesearch_rollout_pallas
-
-        ls = linesearch_rollout_pallas(
-            x_init,
-            C,
-            c,
-            F,
-            f,
-            res.K,
-            res.k,
-            x_hat,
-            u_hat,
-            u_lower=u_lower,
-            u_upper=u_upper,
-            delta_u=spec.delta_u,
-            dyn=dyn_kernel if dynamics_fn is not None else None,
-            decay=spec.linesearch_decay,
-            max_iter=spec.max_linesearch_iter,
-            interpret=spec.pallas_interpret,
-        )
-    elif fusable:
-        from .pallas.rollout_stream import linesearch_rollout_pallas_stream
-
-        ls = linesearch_rollout_pallas_stream(
-            x_init,
-            C,
-            c,
-            F,
-            f,
-            res.K,
-            res.k,
-            x_hat,
-            u_hat,
-            u_lower=u_lower,
-            u_upper=u_upper,
-            delta_u=spec.delta_u,
-            dyn=dyn_kernel if dynamics_fn is not None else None,
-            decay=spec.linesearch_decay,
-            max_iter=spec.max_linesearch_iter,
-            interpret=spec.pallas_interpret,
-        )
-    else:
-        ls = lqr_linesearch_rollout(
-            x_init,
-            C,
-            c,
-            F,
-            f,
-            res.K,
-            res.k,
-            x_hat,
-            u_hat,
-            u_lower=u_lower,
-            u_upper=u_upper,
-            delta_u=spec.delta_u,
-            dynamics_fn=dynamics_fn,
-            cost_fn=cost_fn,
-            decay=spec.linesearch_decay,
-            max_iter=spec.max_linesearch_iter,
-        )
     return LqrStepResult(
         ls.xs, ls.us, ls.objs, ls.alpha, ls.improved, res.free_mask, res.n_qp_iter
     )
@@ -316,8 +235,6 @@ def _kkt_backward_impl(spec, res, grads):
     x_init, C, c, F, f, x_star, u_star, u_lower, u_upper = res
     gx, gu = grads
     n = spec.n_state
-    T = C.shape[0]
-    m = C.shape[-1] - n
 
     if spec.constrained:
         tight = (u_star <= u_lower + spec.tight_eps) | (
@@ -328,51 +245,34 @@ def _kkt_backward_impl(spec, res, grads):
     gu = jnp.where(tight, 0.0, gu)
     r = jnp.concatenate([gx, gu], axis=-1)  # (T, B, n+m)
 
-    # Fast path: the fused Pallas KKT kernel runs the whole backward
-    # (masked aux Riccati + differential rollout + multiplier recursions +
-    # gradient assembly) in one launch — VMEM-resident when the horizon
-    # fits (ops/pallas/kkt.py), HBM-streaming otherwise
-    # (ops/pallas/kkt_stream.py).
-    if _resolve_use_pallas(spec.use_pallas):
-        from .pallas.kkt import kkt_backward_fused, kkt_fits_vmem
+    # Fast path: the fused KKT kernel runs the whole backward (masked aux
+    # Riccati + differential rollout + multiplier recursions + gradient
+    # assembly) in one launch (ops/pallas/kkt.py).
+    if use_kernels(spec.use_pallas, spec.pallas_interpret):
+        from .pallas.kkt import kkt_backward_fused
 
-        from .pallas.riccati import fits_vmem as riccati_fits_vmem
-
-        fused = None
-        if kkt_fits_vmem(T, n, m):
-            fused = kkt_backward_fused
-        elif not riccati_fits_vmem(T, n, m):
-            # Over the resident-Riccati budget the composite path streams
-            # its Riccati anyway, so the fully-streamed fused backward
-            # wins (measured 1.06x at T=128 B=1024 n=3). In between
-            # (e.g. cartpole T=20) the composite's VMEM-resident Riccati
-            # beats per-step streaming (0.73x) — keep the composite.
-            from .pallas.kkt_stream import kkt_backward_fused_stream
-
-            fused = kkt_backward_fused_stream
-        if fused is not None:
-            tau = jnp.concatenate([x_star, u_star], axis=-1)
-            dx_init, dC, dc, dF, df = fused(
-                C, c, F, r, tau, tight, reg=spec.back_eps,
-                interpret=spec.pallas_interpret,
-            )
-            zeros_like = jnp.zeros_like
-            return (
-                dx_init,
-                dC,
-                dc,
-                dF,
-                df,
-                zeros_like(x_star),
-                zeros_like(u_star),
-                zeros_like(u_lower),
-                zeros_like(u_upper),
-            )
+        tau = jnp.concatenate([x_star, u_star], axis=-1)
+        dx_init, dC, dc, dF, df = kkt_backward_fused(
+            C, c, F, r, tau, tight, reg=spec.back_eps,
+            interpret=spec.pallas_interpret,
+        )
+        zeros_like = jnp.zeros_like
+        return (
+            dx_init,
+            dC,
+            dc,
+            dF,
+            df,
+            zeros_like(x_star),
+            zeros_like(u_star),
+            zeros_like(u_lower),
+            zeros_like(u_upper),
+        )
 
     # Auxiliary (adjoint) LQR: min 0.5 p'C p + r'p, A p = 0, tight dims
     # frozen. Solved by the same Riccati recursion with identity-masked
     # control dims, then a zero-residual rollout from dx_init = 0.
-    aux = _riccati(spec, C, r, F, None, n, ctrl_mask=tight, reg=spec.back_eps)
+    aux = riccati_backward(C, r, F, None, n, ctrl_mask=tight, reg=spec.back_eps)
     p_x, p_u = lqr_rollout(jnp.zeros_like(x_init), F, None, aux.K, aux.k)
     p = jnp.concatenate([p_x, p_u], axis=-1)
     tau = jnp.concatenate([x_star, u_star], axis=-1)

@@ -1,4 +1,4 @@
-"""Pallas TPU kernel: the fused analytic KKT backward pass.
+"""Pallas kernel (Triton route): the fused analytic KKT backward pass.
 
 The backward is the reason the reference exists (``mpc/lqr_step.py``
 backward, SURVEY.md §3.3): differentiate the LQR fixed point analytically
@@ -14,57 +14,35 @@ kernel runs the ENTIRE backward in one launch per batch tile:
    ``dF = -(mu_{t+1} tau_t' + lam_{t+1} p_t')``, ``df = -mu_{t+1}`` and
    ``dx_init = -mu_0``.
 
-Everything between the three sweeps stays in VMEM (gains, feedforwards and
-the differential trajectory live in scratch); the equations and sign
+Between the three sweeps the gains, feedforwards and the differential
+trajectory live in per-program working buffers; the equations and sign
 conventions are exactly those of
 :func:`diffmpc_tpu.ops.lqr_step._kkt_backward_impl`, which remains the
 general XLA implementation (and the CPU path). Batch-minor entry layout as
-in :mod:`.riccati`: every scalar matrix entry is an ``(S, 128)`` f32 tile
-over scenarios.
+in :mod:`.riccati`: every scalar matrix entry is a ``(tile,)`` f32 vector
+over scenarios, one per GPU thread.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from . import riccati as _riccati_mod
+from . import riccati as _ric
 from .riccati import (
-    LANE,
-    SUBLANE,
-    TILE_B,
     _from_kernel_layout,
     _masked_chol_solve,
     _to_kernel_layout,
     _use_exact_value_update,
     _value_update,
-    experiment_compiler_params,
+    launch,
     out_struct,
 )
 
 
-def kkt_vmem_bytes(T: int, n: int, m: int, tile_b: int = None) -> int:
-    """Approximate per-tile VMEM footprint of the fused KKT backward."""
-    nm = n + m
-    ins = T * (nm * nm + nm + n * nm + nm + nm + m)
-    outs = T * (nm * nm + nm + n * nm + n) + n
-    scratch = T * (m * n + m + nm)
-    return (ins + outs + scratch) * 4 * (tile_b or TILE_B)
-
-
-def kkt_fits_vmem(T: int, n: int, m: int) -> bool:
-    # module-attribute read (not a by-value import) so tests can pin the
-    # budget by monkeypatching riccati.VMEM_BUDGET_BYTES
-    return kkt_vmem_bytes(T, n, m) <= _riccati_mod.VMEM_BUDGET_BYTES
-
-
 # ---------------------------------------------------------------------------
-# Shared per-step sweep math, parameterized by entry accessors so the
-# VMEM-resident kernel (reads `ref[0, t, ...]`) and the HBM-streaming twin
-# (reads `buf[slot, ...]`, kkt_stream.py) use ONE copy of every formula.
-# Each accessor takes the trailing entry indices, e.g. ``C(a, b)``, ``r(a)``.
+# Per-step sweep math, parameterized by entry accessors (``C(a, b)``,
+# ``r(a)``: the trailing entry indices at the current step).
 # ---------------------------------------------------------------------------
 
 
@@ -161,26 +139,25 @@ def _dyn_grad_entries(n, nm, lam_next, mu_next, tau, p):
     return dF, df
 
 
-def _make_kernel(T, n, m, reg, sublane=None):
+def _make_kernel(T, n, m, reg, tile):
     nm = n + m
-    SL = sublane or SUBLANE  # tile height (wide-tile upgrade, round 3)
 
     def kernel(
         C_ref, c_ref, F_ref, r_ref, tau_ref, tight_ref,
         dC_o, dc_o, dF_o, df_o, dx0_o,
         K_s, k_s, p_s,
     ):
-        zero = jnp.zeros((SL, LANE), jnp.float32)
+        zero = jnp.zeros((tile,), jnp.float32)
 
         # ---- 1. auxiliary Riccati, tight dims frozen (linear term = r) ----
         def ric_body(s, Vv):
             t = T - 1 - s
             K, kt, new_Vv = _aux_ric_step(
                 n, m, reg,
-                lambda a, b: C_ref[0, t, a, b],
-                lambda a, b: F_ref[0, t, a, b],
-                lambda a: r_ref[0, t, a],
-                lambda a: tight_ref[0, t, a],
+                lambda a, b: C_ref[t, a, b],
+                lambda a, b: F_ref[t, a, b],
+                lambda a: r_ref[t, a],
+                lambda a: tight_ref[t, a],
                 Vv,
             )
             for a in range(m):
@@ -197,16 +174,16 @@ def _make_kernel(T, n, m, reg, sublane=None):
                 n, m,
                 lambda a, b: K_s[t, a, b],
                 lambda a: k_s[t, a],
-                lambda a, b: F_ref[0, t, a, b],
+                lambda a, b: F_ref[t, a, b],
                 px,
             )
-            tau = [tau_ref[0, t, a] for a in range(nm)]
+            tau = [tau_ref[t, a] for a in range(nm)]
             dC = _cost_grad_entries(nm, p, tau)
             for a in range(nm):
                 p_s[t, a] = p[a]
-                dc_o[0, t, a] = p[a]
+                dc_o[t, a] = p[a]
                 for b in range(nm):
-                    dC_o[0, t, a, b] = dC[a][b]
+                    dC_o[t, a, b] = dC[a][b]
             return tuple(nxt)
 
         jax.lax.fori_loop(0, T, roll_body, tuple(zero for _ in range(n)))
@@ -216,19 +193,19 @@ def _make_kernel(T, n, m, reg, sublane=None):
             t = T - 1 - s
             lam_next = [carry[a] for a in range(n)]  # lam_{t+1}
             mu_next = [carry[n + a] for a in range(n)]  # mu_{t+1}
-            tau = [tau_ref[0, t, a] for a in range(nm)]
+            tau = [tau_ref[t, a] for a in range(nm)]
             p = [p_s[t, a] for a in range(nm)]
             dF, df = _dyn_grad_entries(n, nm, lam_next, mu_next, tau, p)
             for i in range(n):
-                df_o[0, t, i] = df[i]
+                df_o[t, i] = df[i]
                 for j in range(nm):
-                    dF_o[0, t, i, j] = dF[i][j]
+                    dF_o[t, i, j] = dF[i][j]
             lam, mu = _mult_step(
                 n, m,
-                lambda a, b: C_ref[0, t, a, b],
-                lambda a: c_ref[0, t, a],
-                lambda a, b: F_ref[0, t, a, b],
-                lambda a: r_ref[0, t, a],
+                lambda a, b: C_ref[t, a, b],
+                lambda a: c_ref[t, a],
+                lambda a, b: F_ref[t, a, b],
+                lambda a: r_ref[t, a],
                 tau, p, lam_next, mu_next,
             )
             return tuple(lam) + tuple(mu)
@@ -237,7 +214,7 @@ def _make_kernel(T, n, m, reg, sublane=None):
             0, T, mult_body, tuple(zero for _ in range(2 * n))
         )
         for a in range(n):
-            dx0_o[0, a] = -final[n + a]  # dx_init = -mu_0
+            dx0_o[a] = -final[n + a]  # dx_init = -mu_0
 
     return kernel
 
@@ -267,14 +244,10 @@ def kkt_backward_fused(
     m = tight.shape[-1]
     n = nm - m
     dtype = C.dtype
-
-    from .riccati import pick_tile_sublane
-
-    sublane = pick_tile_sublane(B, lambda tb: kkt_vmem_bytes(T, n, m, tb))
-    tile_b = sublane * LANE
+    tile = _ric.TILE
 
     orig_B = B
-    pad = (-B) % tile_b
+    pad = (-B) % tile
     if pad:
         eyepad = jnp.broadcast_to(jnp.eye(nm, dtype=dtype), (T, pad, nm, nm))
         C = jnp.concatenate([C, eyepad], axis=1)
@@ -284,47 +257,32 @@ def kkt_backward_fused(
         tau = jnp.concatenate([tau, jnp.zeros((T, pad, nm), dtype)], axis=1)
         tight = jnp.concatenate([tight, jnp.zeros((T, pad, m), bool)], axis=1)
         B += pad
-    G = B // tile_b
+    G = B // tile
 
     f32 = lambda x: x.astype(jnp.float32)
     ins = [
-        _to_kernel_layout(f32(C), G, sublane),
-        _to_kernel_layout(f32(c), G, sublane),
-        _to_kernel_layout(f32(F), G, sublane),
-        _to_kernel_layout(f32(r), G, sublane),
-        _to_kernel_layout(f32(tau), G, sublane),
-        _to_kernel_layout(tight.astype(jnp.float32), G, sublane),
+        _to_kernel_layout(f32(C), G, tile),
+        _to_kernel_layout(f32(c), G, tile),
+        _to_kernel_layout(f32(F), G, tile),
+        _to_kernel_layout(f32(r), G, tile),
+        _to_kernel_layout(f32(tau), G, tile),
+        _to_kernel_layout(tight.astype(jnp.float32), G, tile),
     ]
-
-    def spec(shape, ndim):
-        return pl.BlockSpec(
-            (1,) + shape[1:], lambda g, nd=ndim: (g,) + (0,) * (nd - 1),
-            memory_space=pltpu.VMEM,
-        )
-
     out_shapes = [
-        out_struct((G, T, nm, nm, sublane, LANE), ins),  # dC
-        out_struct((G, T, nm, sublane, LANE), ins),  # dc
-        out_struct((G, T, n, nm, sublane, LANE), ins),  # dF
-        out_struct((G, T, n, sublane, LANE), ins),  # df
-        out_struct((G, n, sublane, LANE), ins),  # dx_init
+        out_struct((G, T, nm, nm, tile), ins),  # dC
+        out_struct((G, T, nm, tile), ins),  # dc
+        out_struct((G, T, n, nm, tile), ins),  # dF
+        out_struct((G, T, n, tile), ins),  # df
+        out_struct((G, n, tile), ins),  # dx_init
+        # working buffers
+        out_struct((G, T, m, n, tile), ins),  # K
+        out_struct((G, T, m, tile), ins),  # k
+        out_struct((G, T, nm, tile), ins),  # p
     ]
-    scratch = [
-        pltpu.VMEM((T, m, n, sublane, LANE), jnp.float32),  # K
-        pltpu.VMEM((T, m, sublane, LANE), jnp.float32),  # k
-        pltpu.VMEM((T, nm, sublane, LANE), jnp.float32),  # p
-    ]
-    kernel = _make_kernel(T, n, m, reg, sublane=sublane)
-    dC_l, dc_l, dF_l, df_l, dx0_l = pl.pallas_call(
-        kernel,
-        grid=(G,),
-        in_specs=[spec(x.shape, x.ndim) for x in ins],
-        out_specs=[spec(s.shape, len(s.shape)) for s in out_shapes],
-        out_shape=out_shapes,
-        scratch_shapes=scratch,
-        interpret=interpret,
-        **experiment_compiler_params(kkt_vmem_bytes(T, n, m, tile_b)),
-    )(*ins)
+    kernel = _make_kernel(T, n, m, reg, tile)
+    dC_l, dc_l, dF_l, df_l, dx0_l = launch(
+        kernel, ins, out_shapes, tile=tile, interpret=interpret
+    )[:5]
 
     dC = _from_kernel_layout(dC_l)[:, :orig_B].astype(dtype)
     dc = _from_kernel_layout(dc_l)[:, :orig_B].astype(dtype)

@@ -1,146 +1,45 @@
-"""Pallas TPU kernel: fused batched Riccati backward recursion.
+"""Shared pieces of the Pallas kernels (Triton route, one GPU thread per
+scenario).
 
-The "native component" of this framework (SURVEY.md §2 provenance note and
-§7 stage 8): the reference's hot loop is per-timestep dense linalg of size
-``n+m <= ~8`` batched over thousands of scenarios (``mpc/lqr_step.py:
-lqr_backward``); its CUDA leverage came from cuBLAS batched kernels. On TPU
-the right shape is the opposite of BLAS: block MANY scenarios per tile and
-scalarize the tiny matrices — every matrix entry becomes an ``(S, 128)``
-f32 VPU tile over scenarios (batch-minor layout), the whole ``t = T-1..0``
-recursion runs inside one kernel with the value-function carry ``(V, v)``
-held in registers/VMEM, and the entire per-step chain
-(form Q -> factor -> gains -> V-update, including the projected-Newton box
-QP) is one fused VPU program with zero HBM round-trips between steps.
+The solver's hot loop is per-timestep dense linear algebra of size
+``n+m <= ~8`` batched over thousands of scenarios. That is too small for
+the tensor cores or a BLAS call, so the kernels do the opposite: they
+scalarize the tiny matrices and vectorize over scenarios. Every matrix
+entry is a ``(W,)`` f32 vector holding one value per scenario of the
+program's tile (batch-minor layout), and every matrix operation is
+unrolled into elementwise arithmetic on those vectors. With
+``num_warps = W / 32`` each GPU thread owns exactly one scenario, so a
+thread only ever reads back trajectory entries it wrote itself.
 
-Supports the same three constraint modes as
-:func:`diffmpc_tpu.ops.lqr.riccati_backward` (free / box via in-kernel pnqp
-/ frozen-dims mask for the KKT backward) and matches it to f32 tolerance —
-see tests/test_pallas_riccati.py.
+This module holds what the mega-kernel (:mod:`.ilqr`) and the KKT
+backward (:mod:`.kkt`) share: the entry-wise Cholesky, box-QP and
+value-update helpers, the batch-minor layout transforms, the dynamics
+parameter staging, and the one ``pallas_call`` launch both kernels use.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import os as _os
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
-from ..lqr import RiccatiResult
-
-import os as _os
-
-LANE = 128
-# DIFFMPC_SUBLANE is an EXPERIMENT knob (scripts/ab_sublane.py): 8 = one
-# (8,128) vreg per entry-op (default); 16/32 = 2/4 vregs back-to-back per
-# op — independent scenario groups that amortize per-op issue latency and
-# per-step scalar-core loop overhead at the cost of 2x/4x VMEM per tile.
-SUBLANE = int(_os.environ.get("DIFFMPC_SUBLANE", "8"))
-TILE_B = LANE * SUBLANE  # scenarios per kernel instance
-
-# Per-instance VMEM budget for kernel inputs+outputs; beyond this the
-# resident kernels fall back to the HBM-streaming variants / XLA scan
-# (see fits_vmem()). 10 MB was the round-1 bound that needs no Mosaic
-# window lift; 24 MB is the round-2 default, hardware-validated on the
-# nm=8 quadrotor mega-kernel (~15 MB resident, 68x over the XLA path —
-# scripts/ab_quadrotor.py). Kernels whose footprint exceeds the no-lift
-# bound get a raised vmem_limit via experiment_compiler_params();
-# kernels at or below it compile byte-identically to round 1.
-# DIFFMPC_VMEM_BUDGET_MB overrides for experiments (e.g. 40 puts the
-# T=128 pendulum mega-kernel resident — measured 1.06x over streaming,
-# scripts/ab_resident_budget.py — at the cost of admitting unvalidated
-# nearby shapes; compile failure, not silent corruption, is the failure
-# mode past the real VMEM).
-NO_LIFT_VMEM_BYTES = 10 * 1024 * 1024
-DEFAULT_VMEM_BUDGET_BYTES = 24 * 1024 * 1024
-VMEM_BUDGET_BYTES = (
-    int(_os.environ.get("DIFFMPC_VMEM_BUDGET_MB", "24")) * 1024 * 1024
-)
-
-
-def experiment_compiler_params(est_bytes: int) -> dict:
-    """pallas_call kwargs for a resident kernel with estimated per-tile
-    footprint ``est_bytes`` (the same estimate its dispatch gate uses).
-    Kernels within the round-1 no-lift bound get no compiler params — a
-    byte-identical program to the validated round-1 configuration; larger
-    kernels (admitted by the raised budget) get Mosaic's VMEM window
-    lifted along with it, else their blocks would double-buffer past the
-    default 32 MB window and fail to compile."""
-    if est_bytes <= NO_LIFT_VMEM_BYTES:
-        return {}
-    return {
-        "compiler_params": pltpu.CompilerParams(
-            vmem_limit_bytes=min(127 * 1024 * 1024, 3 * VMEM_BUDGET_BYTES)
-        )
-    }
-
-
-def riccati_vmem_bytes(T: int, n: int, m: int, tile_b: int = None) -> int:
-    """Approximate per-tile VMEM footprint of the Riccati kernel.
-    ``tile_b`` sizes a non-default tile height (the mega-kernel's
-    auto-upgraded wide tiles); default is the module TILE_B."""
-    nm = n + m
-    per_elem = 4 * (tile_b or TILE_B)  # f32 tiles
-    ins = T * (nm * nm + nm + n * nm + n + 2 * m)
-    outs = T * (m * n + 2 * m)
-    return (ins + outs) * per_elem
-
-
-def ilqr_scratch_bytes(T: int, n: int, m: int, tile_b: int = None) -> int:
-    """Extra per-tile VMEM the mega-kernel keeps beyond the Riccati I/O
-    (trajectory + gain scratch); shared by the dispatch gate
-    (mpc._would_use_fused) and the window-lift estimate."""
-    return T * (2 * n + 3 * m + m * n) * 4 * (tile_b or TILE_B)
-
-
-def rollout_scratch_bytes(T: int, n: int, m: int, tile_b: int = None) -> int:
-    """Extra per-tile VMEM of the standalone line-search rollout kernel
-    beyond the Riccati I/O (reference trajectory + candidate scratch).
-    ONE copy of the estimate, used by BOTH the resident-dispatch gate
-    (ops/lqr_step.py) and the kernel's own window-lift call
-    (ops/pallas/rollout.py) — these must never desynchronize: the gate
-    admits a shape, the lift sizes its Mosaic VMEM window."""
-    return T * (2 * n + 3 * m) * 4 * (tile_b or TILE_B)
-
-
-def ilqr_vmem_bytes(T: int, n: int, m: int, tile_b: int = None) -> int:
-    return riccati_vmem_bytes(T, n, m, tile_b) + ilqr_scratch_bytes(
-        T, n, m, tile_b
-    )
-
-
-def fits_vmem(T: int, n: int, m: int, extra: int = 0, tile_b: int = None) -> bool:
-    return riccati_vmem_bytes(T, n, m, tile_b) + extra <= VMEM_BUDGET_BYTES
-
-
-def pick_tile_sublane(B: int, est_bytes_fn) -> int:
-    """Tile-height auto-upgrade policy (round 3), shared by the fused
-    kernels: tallest height in {32, 16, default} whose tile exactly
-    divides ``B`` (no padding-waste regressions) and whose footprint
-    ``est_bytes_fn(tile_b)`` fits the VMEM budget. Taller tiles put 2/4
-    independent vregs behind every entry-op for the same scalar-core loop
-    work — measured 1.15-1.35x on the mega-kernel (scripts/ab_sublane.py).
-    A DIFFMPC_SUBLANE env override (any value, incl. 8) disables the
-    auto-pick: explicit experiment control wins."""
-    if "DIFFMPC_SUBLANE" in _os.environ:
-        return SUBLANE
-    for h in (32, 16):
-        tb = h * LANE
-        if B % tb == 0 and est_bytes_fn(tb) <= VMEM_BUDGET_BYTES:
-            return h
-    return SUBLANE
+# Scenarios per program, one per thread. A power of two (Triton tensor
+# sizes must be) and a multiple of the 32-thread warp.
+TILE = 32
 
 
 # ---------------------------------------------------------------------------
-# Entry-wise linear algebra on lists-of-(S,128)-tiles (generated with static
-# Python loops — the in-kernel counterpart of ops/smallchol.py).
+# Entry-wise linear algebra on lists of per-scenario vectors (generated with
+# static Python loops — the in-kernel counterpart of ops/smallchol.py).
 # ---------------------------------------------------------------------------
 
 
 def _chol_entries(A, m, reg=0.0):
-    """Cholesky of an m x m SPD matrix whose entries A[i][j] are (S, 128)
-    tiles; returns lower-factor entries."""
+    """Cholesky of an m x m SPD matrix whose entries A[i][j] are
+    per-scenario vectors; returns lower-factor entries."""
     L = [[None] * m for _ in range(m)]
     for j in range(m):
         s = A[j][j] + reg if reg else A[j][j]
@@ -181,9 +80,8 @@ def _masked_chol_solve(Quu, rhs_cols, frozen, m, reg):
     free = [1.0 - frozen[i] for i in range(m)]
     if m == 1:
         # scalar system: one reciprocal instead of sqrt + two divides per
-        # column. Measured perf-neutral on TPU (the step is latency-bound
-        # elsewhere), kept for the strictly smaller op count; agrees with
-        # the Cholesky path to f32 roundoff (~1e-6 on gains).
+        # column; agrees with the Cholesky path to f32 roundoff (~1e-6 on
+        # gains).
         inv = 1.0 / (Quu[0][0] * free[0] + frozen[0] + reg)
         return [[col[0] * free[0] * inv] for col in rhs_cols]
     Am = [
@@ -204,7 +102,7 @@ def _masked_chol_solve(Quu, rhs_cols, frozen, m, reg):
 def _pnqp_enum_entries(Quu, qu, lo, hi, m, reg):
     """Exact box-QP solve by active-set enumeration in the entry-tile
     layout: all ``3**m`` candidate active sets (each control dim free /
-    at lo / at hi) are solved INDEPENDENTLY — data-parallel VPU work with
+    at lo / at hi) are solved INDEPENDENTLY — data-parallel work with
     no serial Newton chain — then the KKT-valid minimum-objective candidate
     is selected with a short ``where`` chain.
 
@@ -212,8 +110,8 @@ def _pnqp_enum_entries(Quu, qu, lo, hi, m, reg):
     one active set satisfies the full KKT conditions, so this agrees with
     the converged projected-Newton iteration (it IS the oracle construction
     tests/oracles.py uses). Practical only for tiny ``m`` (3**m candidate
-    solves); dispatched for ``m == 2`` where the serial loop dominated the
-    quadrotor Riccati chain (scripts/ab_pnqp_slope.py)."""
+    solves); dispatched for ``m == 2``, where it replaces the serial
+    Newton chain of the quadrotor's Riccati step."""
     import itertools
 
     BIG = jnp.float32(1e30)
@@ -301,17 +199,13 @@ def _pnqp_enum_entries(Quu, qu, lo, hi, m, reg):
 # DIFFMPC_PNQP_ENUM: "" (default) = enumeration at m == 2; "0" = always the
 # projected-Newton loop (A/B knob); "1" = extend enumeration to m == 3
 # (27 candidates — op count grows past the loop's, chain still shorter).
-# m=3 VALIDATED on hardware (2026-08-20, scripts/ab_pnqp_enum3.py, n=6 m=3
-# NN dynamics through the mega-kernel, interleaved fixed-work minima):
-# 1.067x over the 8-iter loop, and exact — matches the f64 brute-force
-# oracle to 5e-8 objective on 4096 corner-heavy QPs where the loop's rare
-# corner picks are equal-objective near-ties (DESIGN.md §3a). Left opt-in
-# (not the default like m=2) because no m=3 env/production shape exists in
-# the zoo — defaults only cover shapes with hardware coverage.
+# At m=3 the enumeration is exact — it matches the f64 brute-force oracle
+# to 5e-8 objective on 4096 corner-heavy QPs where the loop's rare corner
+# picks are equal-objective near-ties (DESIGN.md §3a). Left opt-in (not
+# the default like m=2) because no m=3 env shape exists in the zoo.
 #
-# The env var is consulted at DISPATCH time (like DIFFMPC_SUBLANE /
-# DIFFMPC_VMEM_BUDGET_MB — round 4, advisor finding: an import-time read
-# silently ignores env flips made after `import diffmpc_tpu`); the module
+# The env var is consulted at DISPATCH time (an import-time read would
+# silently ignore env flips made after `import diffmpc_tpu`); the module
 # global `_PNQP_ENUM` is the in-process default tests/A-Bs monkeypatch when
 # the env var is unset. Either way the knob is read at TRACE time — already
 # jit-compiled programs (cached on shapes only) do not see later flips;
@@ -432,7 +326,7 @@ def _pnqp_is_exact(mode, m):
 
 def _value_update(Q, q, Quu, qu, K, kt, n, m, exact):
     """Value-function update ``(V', v')`` from the gains, shared by all
-    Riccati-sweep kernels (resident/mega/streaming/KKT-aux).
+    Riccati sweeps (the mega-kernel, the KKT kernel's auxiliary sweep).
 
     When ``exact`` — the gains are exact masked solves and ``kt`` is the
     exact inner-QP optimum (see :func:`_pnqp_is_exact`), with tiny ``reg``
@@ -443,8 +337,7 @@ def _value_update(Q, q, Quu, qu, K, kt, n, m, exact):
         ``V' = Qxx + sym(Qxu K)``      ``v' = qx + Qxu kt``
 
     dropping the ``K'Quu K`` / ``K'(qu + Quu kt)`` terms — fewer MACs and
-    a shorter serial dependency chain per step (the headline solve is
-    VPU-latency-bound; DESIGN.md roofline). Error vs the full form is
+    a shorter serial dependency chain per step. Error vs the full form is
     ``O(reg * |K|^2)`` plus f32 roundoff. Otherwise (box mode with the
     iterative pnqp, or large ``reg``) the full quadratic form is kept —
     the cancellation does not hold for an unconverged ``kt``.
@@ -493,14 +386,8 @@ def _value_update(Q, q, Quu, qu, K, kt, n, m, exact):
 
 # Threshold on reg below which the simplified value update MAY engage
 # (the cancellation identity's O(reg * |K|^2) error could reach parity
-# tolerances above it). Default -1.0 = ALWAYS use the full quadratic form:
-# the round-4 hardware A/Bs measured the simplification NEUTRAL at every
-# shape that matters (interleaved fixed-work minima — mega-kernel pendulum
-# m=1 0.969x, quadrotor m=2 1.008x, standalone Riccati pass 1.008x with
-# bitwise-identical gains; scripts/ab_value_update.py,
-# ab_riccati_value.py), so the round-3 default was flipped back: a default
-# that buys nothing below the noise floor is debt, and the full form keeps
-# the XLA/kernel equivalence story trivial. Set to e.g. 1e-6 before
+# tolerances above it). Default -1.0 = ALWAYS use the full quadratic form,
+# which keeps the XLA/kernel equivalence trivial. Set to e.g. 1e-6 before
 # tracing to re-enable the simplified form (experiment knob; the identity
 # and its tests remain — tests/test_value_update.py).
 VALUE_UPDATE_EXACT_REG = -1.0
@@ -514,103 +401,8 @@ def _use_exact_value_update(mode, m, reg):
 
 
 # ---------------------------------------------------------------------------
-# The kernel.
+# Layout, parameter staging and the launch.
 # ---------------------------------------------------------------------------
-
-
-def _make_kernel(T, n, m, mode, reg, pnqp_iter, sublane=None):
-    nm = n + m
-    SL = sublane or SUBLANE  # tile height (wide-tile upgrade, round 3)
-    exact_update = _use_exact_value_update(mode, m, reg)
-
-    def kernel(*refs):
-        if mode == "box":
-            (C_ref, c_ref, F_ref, f_ref, lo_ref, hi_ref,
-             K_ref, k_ref, free_ref, nqp_ref) = refs
-        elif mode == "mask":
-            C_ref, c_ref, F_ref, f_ref, mask_ref, K_ref, k_ref, free_ref = refs
-        else:
-            C_ref, c_ref, F_ref, f_ref, K_ref, k_ref, free_ref = refs
-
-        zero = jnp.zeros((SL, LANE), jnp.float32)
-
-        def step(i, carry):
-            t = T - 1 - i
-            Vv = carry  # tuple: n*n V entries then n v entries
-            V = [[Vv[a * n + b] for b in range(n)] for a in range(n)]
-            v = [Vv[n * n + a] for a in range(n)]
-
-            Ft = [[F_ref[0, t, a, b] for b in range(nm)] for a in range(n)]
-            ct = [c_ref[0, t, a] for a in range(nm)]
-            ft = [f_ref[0, t, a] for a in range(n)]
-
-            # W[k][j] = sum_l V[k][l] F[l][j]; z[k] = sum_l V[k][l] f[l] + v[k]
-            W = [
-                [sum(V[k][l] * Ft[l][j] for l in range(n)) for j in range(nm)]
-                for k in range(n)
-            ]
-            z = [sum(V[k][l] * ft[l] for l in range(n)) + v[k] for k in range(n)]
-
-            # Q = C + F' W (symmetric): compute upper triangle, mirror
-            Q = [[None] * nm for _ in range(nm)]
-            for a in range(nm):
-                for b in range(a, nm):
-                    val = C_ref[0, t, a, b] + sum(
-                        Ft[k][a] * W[k][b] for k in range(n)
-                    )
-                    Q[a][b] = val
-                    if b != a:
-                        Q[b][a] = val
-            q = [ct[a] + sum(Ft[k][a] * z[k] for k in range(n)) for a in range(nm)]
-
-            Quu = [[Q[n + a][n + b] for b in range(m)] for a in range(m)]
-            Qux = [[Q[n + a][b] for b in range(n)] for a in range(m)]
-            qu = [q[n + a] for a in range(m)]
-
-            if mode == "box":
-                lo = [lo_ref[0, t, a] for a in range(m)]
-                hi = [hi_ref[0, t, a] for a in range(m)]
-                kt, frozen, n_qp = _pnqp_entries(Quu, qu, lo, hi, m, pnqp_iter, reg)
-                nqp_ref[0, t, 0] = n_qp
-                rhs_cols = [[Qux[a][b] for a in range(m)] for b in range(n)]
-                K_cols = _masked_chol_solve(Quu, rhs_cols, frozen, m, reg)
-                K = [[-K_cols[b][a] for b in range(n)] for a in range(m)]
-            elif mode == "mask":
-                frozen = [mask_ref[0, t, a] for a in range(m)]
-                rhs_cols = [[Qux[a][b] for a in range(m)] for b in range(n)] + [qu]
-                sols = _masked_chol_solve(Quu, rhs_cols, frozen, m, reg)
-                K = [[-sols[b][a] for b in range(n)] for a in range(m)]
-                kt = [-sols[n][a] for a in range(m)]
-            else:
-                frozen = [zero] * m
-                L = _chol_entries(Quu, m, reg)
-                cols = [
-                    _cho_solve_entries(L, [Qux[a][b] for a in range(m)], m)
-                    for b in range(n)
-                ]
-                kcol = _cho_solve_entries(L, qu, m)
-                K = [[-cols[b][a] for b in range(n)] for a in range(m)]
-                kt = [-kcol[a] for a in range(m)]
-
-            # V' = Qxx + Qxu K + (Qxu K)' + K' Quu K ; symmetric
-            # v' = qx + Qxu k + K'(qu + Quu k)
-            # (simplified via the DDP cancellation when the inner solve is
-            # exact — see _value_update)
-            Vn, vn = _value_update(Q, q, Quu, qu, K, kt, n, m, exact_update)
-
-            for a in range(m):
-                for b in range(n):
-                    K_ref[0, t, a, b] = K[a][b]
-                k_ref[0, t, a] = kt[a]
-                free_ref[0, t, a] = 1.0 - frozen[a]
-
-            flat = tuple(Vn[a][b] for a in range(n) for b in range(n)) + tuple(vn)
-            return flat
-
-        init = tuple(zero for _ in range(n * n + n))
-        jax.lax.fori_loop(0, T, step, init)
-
-    return kernel
 
 
 def out_struct(shape, ref_ins, dtype=jnp.float32):
@@ -626,30 +418,33 @@ def out_struct(shape, ref_ins, dtype=jnp.float32):
     return jax.ShapeDtypeStruct(shape, dtype)
 
 
-def _to_kernel_layout(x, G, sublane: int = None):
-    """(T, B, d1, d2?) -> (G, T, d1, d2?, S, 128). ``sublane`` overrides
-    the module tile height (mega-kernel wide-tile upgrade)."""
-    T = x.shape[0]
-    trail = x.shape[2:]
+def _to_kernel_layout(x, G, tile):
+    """(T, B, d1, d2?) -> (G, T, d1, d2?, tile)."""
     x = jnp.moveaxis(x, 1, -1)  # (T, *trail, B)
-    x = x.reshape(x.shape[:-1] + (G, sublane or SUBLANE, LANE))
-    return jnp.moveaxis(x, -3, 0)  # (G, T, *trail, S, 128)
+    x = x.reshape(x.shape[:-1] + (G, tile))
+    return jnp.moveaxis(x, -2, 0)  # (G, T, *trail, tile)
 
 
-def stage_kernel_params(dyn, pad, G, sublane: int = None):
-    """Stage ``dyn.kernel_params()`` for a Pallas launch — the ONE copy of
-    the staging contract shared by the mega-kernel and both rollout kernels.
+def _from_kernel_layout(x):
+    """(G, T, d1, d2?, tile) -> (T, B, d1, d2?)."""
+    x = jnp.moveaxis(x, 0, -2)  # (T, *trail, G, tile)
+    x = x.reshape(x.shape[:-2] + (-1,))
+    return jnp.moveaxis(x, -1, 1)
 
-    Shared ``(P,)`` params become SMEM scalars; per-scenario ``(B, P)``
-    params become one (S, 128) VMEM tile per parameter per grid cell (the
-    scenario axis padded like every other input — pad rows repeat row 0:
-    discarded on output but kept finite for in-kernel divisions).
 
-    Returns ``(params_arr, n_params, batched, block_spec)``.
+def stage_kernel_params(dyn, pad, G, tile):
+    """Stage ``dyn.kernel_params()`` for a launch.
+
+    Shared ``(P,)`` params stay one small array that every program reads
+    as scalars; per-scenario ``(B, P)`` params become one ``(tile,)``
+    vector per parameter per program (the scenario axis padded like every
+    other input: pad rows repeat row 0, discarded on output but kept
+    finite for in-kernel divisions).
+
+    Returns ``(params_arr, n_params, shared)``.
     """
     params_raw = dyn.kernel_params().astype(jnp.float32)
-    batched = params_raw.ndim == 2
-    if batched:
+    if params_raw.ndim == 2:
         if pad:
             params_raw = jnp.concatenate(
                 [
@@ -658,146 +453,56 @@ def stage_kernel_params(dyn, pad, G, sublane: int = None):
                 ],
                 axis=0,
             )
-        n_params = params_raw.shape[1]
-        params_arr = _to_kernel_layout(params_raw[None], G, sublane)[:, 0]
-        spec = pl.BlockSpec(
-            (1, n_params, sublane or SUBLANE, LANE),
-            lambda g: (g, 0, 0, 0),
-            memory_space=pltpu.VMEM,
-        )
-    else:
-        params_arr = params_raw.reshape(-1, 1)
-        n_params = params_arr.shape[0]
-        spec = pl.BlockSpec(
-            (n_params, 1), lambda g: (0, 0), memory_space=pltpu.SMEM
-        )
-    return params_arr, n_params, batched, spec
+        params_arr = _to_kernel_layout(params_raw[None], G, tile)[:, 0]
+        return params_arr, params_raw.shape[1], False
+    params_arr = params_raw.reshape(-1)
+    return params_arr, params_arr.shape[0], True
 
 
-def read_kernel_params(params_ref, n_params, batched_params):
-    """In-kernel counterpart of :func:`stage_kernel_params`: unpack the
-    params ref into a list of per-parameter values — SMEM scalars, or
-    (S, 128) VMEM tiles that broadcast through ``entries_step`` arithmetic
-    exactly like scalars."""
-    if not n_params:
-        return None
-    if batched_params:
-        return [params_ref[0, j] for j in range(n_params)]
-    return [params_ref[j, 0] for j in range(n_params)]
+def read_kernel_params(params_ref, n_params):
+    """In-kernel counterpart of :func:`stage_kernel_params`: one value per
+    parameter, a scalar (shared) or a ``(tile,)`` vector (per scenario);
+    both broadcast through ``entries_step`` arithmetic alike."""
+    return [params_ref[j] for j in range(n_params)]
 
 
-def _from_kernel_layout(x):
-    """(G, T, d1, d2?, S, 128) -> (T, B, d1, d2?)."""
-    x = jnp.moveaxis(x, 0, -3)  # (T, *trail, G, S, 128)
-    x = x.reshape(x.shape[:-3] + (-1,))
-    return jnp.moveaxis(x, -1, 1)
+def launch(kernel, ins, out_shapes, *, tile, interpret, n_shared=0):
+    """The one ``pallas_call`` of both kernels.
 
+    The grid has one program per ``tile`` scenarios. Every input and
+    output is ``(G, ..., tile)`` and each program sees its own slice with
+    the leading axis squeezed away, except the first ``n_shared`` inputs,
+    which every program sees whole (shared dynamics parameters). Outputs
+    may include per-program working buffers (the Triton route has no
+    scratch memory); the caller drops them.
 
-def riccati_backward_pallas(
-    C: jnp.ndarray,
-    c: jnp.ndarray,
-    F: jnp.ndarray,
-    f: Optional[jnp.ndarray],
-    n_state: int,
-    *,
-    u_lower: Optional[jnp.ndarray] = None,
-    u_upper: Optional[jnp.ndarray] = None,
-    u_hat: Optional[jnp.ndarray] = None,
-    ctrl_mask: Optional[jnp.ndarray] = None,
-    reg: float = 1e-9,
-    pnqp_iter: int = 8,
-    pnqp_eps: float = 1e-6,
-    interpret: bool = False,
-) -> RiccatiResult:
-    """Drop-in Pallas replacement for :func:`diffmpc_tpu.ops.lqr.
-    riccati_backward` (same contract; see that docstring). The batch is
-    padded to a multiple of 1024 (8 sublanes x 128 lanes) with benign
-    identity problems and tiled over the kernel grid."""
-    n = n_state
-    T, B = C.shape[0], C.shape[1]
-    nm = C.shape[-1]
-    m = nm - n
-    dtype = C.dtype
-    box = u_lower is not None
-    mode = "box" if box else ("mask" if ctrl_mask is not None else "free")
+    ``num_stages=1``: the kernels re-read, in later loop iterations,
+    buffers they wrote in earlier ones, so no load may be software-
+    pipelined ahead of those stores.
+    """
+    G = out_shapes[0].shape[0]
 
-    sublane = pick_tile_sublane(B, lambda tb: riccati_vmem_bytes(T, n, m, tb))
-    tile_b = sublane * LANE
-
-    orig_B = B
-    pad = (-B) % tile_b
-    if pad:
-        eyepad = jnp.broadcast_to(jnp.eye(nm, dtype=dtype), (T, pad, nm, nm))
-        C = jnp.concatenate([C, eyepad], axis=1)
-        c = jnp.concatenate([c, jnp.zeros((T, pad, nm), dtype)], axis=1)
-        F = jnp.concatenate([F, jnp.zeros((T, pad, n, nm), dtype)], axis=1)
-        if f is not None:
-            f = jnp.concatenate([f, jnp.zeros((T, pad, n), dtype)], axis=1)
-        if box:
-            u_lower = jnp.concatenate(
-                [jnp.broadcast_to(u_lower, (T, orig_B, m)), jnp.full((T, pad, m), -1.0, dtype)], axis=1
-            )
-            u_upper = jnp.concatenate(
-                [jnp.broadcast_to(u_upper, (T, orig_B, m)), jnp.full((T, pad, m), 1.0, dtype)], axis=1
-            )
-            u_hat = jnp.concatenate([u_hat, jnp.zeros((T, pad, m), dtype)], axis=1)
-        if ctrl_mask is not None:
-            ctrl_mask = jnp.concatenate(
-                [ctrl_mask, jnp.zeros((T, pad, m), bool)], axis=1
-            )
-        B = B + pad
-    G = B // tile_b
-
-    if f is None:
-        f = jnp.zeros((T, B, n), dtype)
-
-    f32 = lambda x: x.astype(jnp.float32)
-    ins = [
-        _to_kernel_layout(f32(C), G, sublane),
-        _to_kernel_layout(f32(c), G, sublane),
-        _to_kernel_layout(f32(F), G, sublane),
-        _to_kernel_layout(f32(f), G, sublane),
-    ]
-    if mode == "box":
-        lo = jnp.broadcast_to(u_lower, (T, B, m)) - u_hat
-        hi = jnp.broadcast_to(u_upper, (T, B, m)) - u_hat
-        ins += [_to_kernel_layout(f32(lo), G, sublane),
-                _to_kernel_layout(f32(hi), G, sublane)]
-    elif mode == "mask":
-        ins += [_to_kernel_layout(ctrl_mask.astype(jnp.float32), G, sublane)]
-
-    def spec(x):
+    def tiled(shape):
         return pl.BlockSpec(
-            (1,) + x.shape[1:], lambda g: (g,) + (0,) * (x.ndim - 1),
-            memory_space=pltpu.VMEM,
+            (None,) + tuple(shape[1:]),
+            lambda g, nd=len(shape): (g,) + (0,) * (nd - 1),
         )
 
-    out_shapes = [
-        out_struct((G, T, m, n, sublane, LANE), ins),  # K
-        out_struct((G, T, m, sublane, LANE), ins),  # k
-        out_struct((G, T, m, sublane, LANE), ins),  # free
-    ]
-    if mode == "box":
-        out_shapes.append(
-            out_struct((G, T, 1, sublane, LANE), ins)  # n_qp
-        )
-    kernel = _make_kernel(T, n, m, mode, reg, pnqp_iter, sublane=sublane)
-    outs = pl.pallas_call(
+    def whole(shape):
+        return pl.BlockSpec(tuple(shape), lambda g, nd=len(shape): (0,) * nd)
+
+    return pl.pallas_call(
         kernel,
         grid=(G,),
-        in_specs=[spec(x) for x in ins],
-        out_specs=[spec(jax.ShapeDtypeStruct(s.shape, s.dtype)) for s in out_shapes],
+        in_specs=[
+            whole(x.shape) if i < n_shared else tiled(x.shape)
+            for i, x in enumerate(ins)
+        ],
+        out_specs=[tiled(s.shape) for s in out_shapes],
         out_shape=out_shapes,
         interpret=interpret,
-        **experiment_compiler_params(riccati_vmem_bytes(T, n, m, tile_b)),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=tile // 32, num_stages=1
+        ),
     )(*ins)
-    K_l, k_l, free_l = outs[:3]
-
-    K = _from_kernel_layout(K_l)[:, :orig_B].astype(dtype)
-    k = _from_kernel_layout(k_l)[:, :orig_B].astype(dtype)
-    free = _from_kernel_layout(free_l)[:, :orig_B] > 0.5
-    if mode == "box":
-        n_qp = _from_kernel_layout(outs[3])[:, :orig_B, 0].astype(jnp.int32)
-    else:
-        n_qp = jnp.zeros((T, orig_B), jnp.int32)
-    return RiccatiResult(K, k, free, n_qp)

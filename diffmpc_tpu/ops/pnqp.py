@@ -6,7 +6,7 @@ tiny (m <= ~8) QPs, returning the solution, the Cholesky factor of the
 free-subspace system (reused by the LQR step for the feedback gains), the
 free mask, and an iteration count.
 
-TPU-first redesign: every data-dependent branch of the reference (active-set
+Redesign: every data-dependent branch of the reference (active-set
 changes, per-element convergence exits, Armijo backtracking) becomes
 fixed-trip-count masked computation so the whole solver lives inside one
 XLA/Pallas program:
@@ -14,7 +14,7 @@ XLA/Pallas program:
 - the active ("clamped") set is a boolean mask; the free-subspace Newton
   solve is a full-size batched Cholesky of ``H`` with clamped rows/columns
   overwritten by identity and clamped gradient entries zeroed (the
-  reference's own masking trick — already TPU-shaped),
+  reference's own masking trick),
 - converged batch elements are frozen with ``where`` instead of exiting,
 - the Armijo backtracking loop is a geometric step-size ladder evaluated for
   all batch elements at once; the first strictly-improving step is taken.
@@ -46,7 +46,7 @@ def masked_identity_system(
     With rhs entries zeroed on the clamped set, a dense solve of the masked
     system equals the free-subspace solve with zeros in clamped slots — no
     gather/scatter, fully batched (the reference's masking trick from
-    ``mpc/pnqp.py``, which is exactly the right shape for the TPU VPU).
+    ``mpc/pnqp.py``).
     """
     m = H.shape[-1]
     free = ~clamped
@@ -161,7 +161,7 @@ def pnqp(
         Newton point ``clamp(-H^-1 q)`` like the reference.
       n_iter: fixed Newton trip count (converged elements are frozen).
       reg: Tikhonov jitter added to the masked system before Cholesky
-        (f32-on-TPU stability; SURVEY.md §7 hard-part 3).
+        (f32 stability; SURVEY.md §7 hard-part 3).
       eps: per-element convergence threshold on the Newton step.
 
     Returns:
@@ -179,7 +179,7 @@ def pnqp(
     # DIFFMPC_PNQP_ENUM=1), mirroring the fused kernels' dispatch
     # (ops/pallas/riccati._pnqp_entries) so solver behavior AND
     # PnqpResult.n_iter / MPCInfo.qp_iters semantics agree across the XLA
-    # and Pallas paths (round 4, VERDICT r3 #6). Lazy import: the policy
+    # and Pallas paths. Lazy import: the policy
     # knobs live with the kernels (the documented monkeypatch surface,
     # CLAUDE.md), and pallas.riccati module-imports ops.lqr -> ops.pnqp,
     # so a module-level import here would cycle.

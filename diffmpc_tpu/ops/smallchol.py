@@ -4,8 +4,9 @@ The solver's per-timestep systems are ``(n+m) <= ~8`` (SURVEY.md §3.2
 "per-t work is tiny dense linalg"). XLA's generic ``cholesky`` /
 ``triangular_solve`` lower to blocked algorithms with per-op overhead that
 dwarfs the arithmetic at this size; unrolling the factorization into scalar
-vector ops over the batch (everything becomes length-B VPU lanes) is the
-TPU-native shape and is also what the Pallas kernels inline.
+vector ops over the batch (everything becomes length-B elementwise work)
+is the accelerator-friendly shape and is also what the Pallas kernels
+inline.
 
 All functions broadcast over arbitrary leading batch dims; the matrix dim
 must be static.

@@ -1,19 +1,19 @@
 """Multi-host process-group initialization.
 
 The reference ships no distributed backend (SURVEY.md §2.3/§5.8 — single
-process, one device). The TPU-native equivalent is
-``jax.distributed.initialize()`` + a global batch mesh: every host runs the
-same program, the scenario batch is sharded over all devices in the pod
-(``psum``/``pmean`` ride ICI within a slice and DCN across hosts — XLA
-routes them), and per-host data loading addresses the host's addressable
-shard. No hand-written transport layer is needed or appropriate.
+process, one device). The JAX equivalent is
+``jax.distributed.initialize()`` + a global batch mesh: every process runs
+the same program, the scenario batch is sharded over all devices
+(``psum``/``pmean`` are collectives XLA routes), and per-process data
+loading addresses the process's addressable shard. No hand-written
+transport layer is needed or appropriate.
 
-Typical multi-host launch (driver eval config 5, 65k scenarios on v5p-16):
+Typical multi-process launch (driver eval config 5, 65k scenarios):
 
-    # identical on every host (TPU pods auto-discover coordinator):
+    # identical in every process; pass the coordinator explicitly
     from diffmpc_tpu.parallel import distributed, make_mesh
-    distributed.initialize()            # no-op on single-process setups
-    mesh = make_mesh()                  # 1-D mesh over ALL pod devices
+    distributed.initialize("localhost:9876", num_processes=2, process_id=i)
+    mesh = make_mesh()                  # 1-D mesh over ALL devices
     step = make_dp_train_step(config, make_problem, opt, mesh, lo, hi)
     x_local = ...                       # this host's shard of the batch
     x_global = distributed.host_local_to_global(mesh, x_local, batch_dim=0)
@@ -36,9 +36,9 @@ def initialize(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> int:
-    """Join the multi-host process group. On TPU pods all arguments are
-    auto-discovered from the environment; on other transports pass them
-    explicitly. Safe no-op when running single-process (the reference's
+    """Join the multi-host process group. Pass the coordinator address,
+    process count and process id explicitly unless the cluster environment
+    provides them for auto-discovery. Safe no-op when running single-process (the reference's
     only mode). Returns the process index."""
     if (
         coordinator_address is not None

@@ -1,11 +1,11 @@
 """Device-mesh and sharding helpers.
 
 The reference has no distributed layer at all (SURVEY.md §2.3 — single
-process, batch vectorization only). The TPU-native scaling story is built
-here instead: the scenario batch axis is sharded over a 1-D ``('batch',)``
-mesh with ``NamedSharding``; XLA's GSPMD partitioner inserts the collectives
-(``psum`` for gradient reductions over ICI within a slice, DCN across
-hosts). No hand-written transport layer is needed or appropriate on TPU
+process, batch vectorization only). The scaling story is built here
+instead: the scenario batch axis is sharded over a 1-D ``('batch',)`` mesh
+with ``NamedSharding``; XLA's GSPMD partitioner inserts the collectives
+(``psum`` for gradient reductions, which XLA hands to NCCL over NVLink
+between the cards of a host). No hand-written transport layer is needed
 (SURVEY.md §5.8).
 """
 

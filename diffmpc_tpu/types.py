@@ -1,9 +1,9 @@
-"""Core problem types for the TPU-native differentiable-MPC engine.
+"""Core problem types for the differentiable-MPC engine.
 
 Capability parity with the reference's type surface
 (``pfnet-research/chainer-differentiable-mpc``, see SURVEY.md §2.1 C4:
 ``mpc/mpc.py`` defines ``QuadCost``, ``LinDx``, ``GradMethods`` plus the MPC
-constructor knobs). Re-designed TPU-first: costs/dynamics are registered JAX
+constructor knobs). Re-designed for JAX: costs/dynamics are registered JAX
 pytrees so they flow through ``jit``/``vmap``/``shard_map`` unchanged, and all
 solver knobs live in a hashable frozen dataclass usable as a static jit
 argument.
@@ -72,7 +72,7 @@ class LineSearchConfig:
     """Vectorized Armijo backtracking configuration.
 
     The reference backtracks per batch element sequentially
-    (``lqr_step.py: lqr_forward``); on TPU we evaluate the full geometric
+    (``lqr_step.py: lqr_forward``); here we evaluate the full geometric
     alpha-ladder ``decay**k, k < max_iter`` for every batch element in one
     batched rollout and select per-element the first improving step — same
     accept rule, fixed trip count (SURVEY.md §7 stage 5).
@@ -115,15 +115,15 @@ class MPCConfig:
     tight_eps: float = 1e-6
     # Advisory record of the intended compute dtype: the solver actually
     # follows ``x_init.dtype`` (pass f64 arrays on CPU for high-accuracy
-    # parity fixtures — SURVEY.md §7 hard-part 3; f32 is the TPU path).
+    # parity fixtures — SURVEY.md §7 hard-part 3; f32 is the GPU path).
     dtype: jnp.dtype = jnp.float32
-    # Pallas fused Riccati kernel (SURVEY.md §7 stage 8). None = auto: on for
-    # TPU backends, off on CPU (where the XLA scan path is used / the kernel
-    # would need interpret mode).
+    # Pallas kernels (the fused iLQR solve and the KKT backward, Triton
+    # route). None = auto: on for the GPU, off on the CPU (the XLA path);
+    # see diffmpc_tpu.ops.lqr_step.use_kernels for the platform table.
     use_pallas: Optional[bool] = None
-    # Run the Pallas kernels in Mosaic interpret mode (CPU-executable).
-    # Testing knob: lets the production kernel path — including its
-    # composition with shard_map — run on the virtual CPU mesh.
+    # Run the Pallas kernels in interpret mode (CPU-executable). Testing
+    # knob: lets the GPU kernel path — including its composition with
+    # shard_map — run on the virtual CPU mesh.
     pallas_interpret: bool = False
 
     @property

@@ -16,10 +16,10 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
-# All library contractions run at full f32 precision. On TPU, XLA lowers
-# einsum/matmul to bf16 MXU passes by default, which accumulates ~1e-2
-# relative error through the T-step Riccati recursion — far outside the
-# 1e-4 parity budget (BASELINE.md). The matrices here are tiny (n+m <= ~8),
+# All library contractions run at full f32 precision. On the GPU, XLA may
+# run f32 einsum/matmul in TF32 (about three decimal digits) unless asked
+# for more, which accumulates ~1e-2 relative error through the T-step
+# Riccati recursion — far outside the 1e-4 parity budget (BASELINE.md). The matrices here are tiny (n+m <= ~8),
 # so the correctly-rounded path costs nothing; the Pallas kernels use exact
 # f32 FMAs natively.
 PRECISION = jax.lax.Precision.HIGHEST

@@ -3,7 +3,9 @@
 Importing this module ALSO bootstraps ``sys.path`` so the examples run from
 a clean shell (``python examples/il_pendulum.py ...``) without an installed
 package or a manually exported PYTHONPATH — every example imports ``common``
-before ``diffmpc_tpu`` for exactly this reason (VERDICT r2 weak item #4).
+before ``diffmpc_tpu`` for exactly this reason — and points the persistent
+compilation cache at ``<repo>/.jax_cache`` unless
+``JAX_COMPILATION_CACHE_DIR`` names another directory.
 """
 
 from __future__ import annotations
@@ -18,6 +20,10 @@ if _REPO_ROOT not in sys.path:
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+from diffmpc_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 
 def force_cpu_if_requested(args):

@@ -3,12 +3,12 @@
 
 Build host (any machine, CPU is fine):
     python export_artifact.py build --env pendulum --batch 1024 \
-        --target tpu --out solve.bin
+        --target cuda --out solve.bin
 Serving host (loads WITHOUT the config/model code paths below):
     python export_artifact.py run solve.bin --reps 20
 
 The artifact bakes config + cost + dynamics + bounds + batch shape
-(`diffmpc_tpu.aot.export_solve`); `--target tpu` cross-lowers the fused
+(`diffmpc_tpu.aot.export_solve`); `--target cuda` cross-lowers the fused
 Pallas program from a CPU build host. `--warm-start` adds the u_init
 runtime input (receding-horizon serving); `--params-input` leaves the
 dynamics parameters as a runtime input (serve learned models without
@@ -94,7 +94,7 @@ def build(args):
 
 def inspect_artifact(args):
     """Print the embedded manifest WITHOUT deserializing the program —
-    the fleet-side validation step (VERDICT r4 #4)."""
+    the fleet-side validation step."""
     import json
 
     from diffmpc_tpu.aot import read_manifest
@@ -180,7 +180,7 @@ def main():
     b.add_argument("--horizon", type=int, default=20)
     b.add_argument("--lqr-iter", type=int, default=10)
     b.add_argument("--target", default=None,
-                   help="lowering platform (e.g. tpu); default = current")
+                   help="lowering platform (e.g. cuda); default = current")
     b.add_argument("--warm-start", action="store_true")
     b.add_argument("--params-input", action="store_true")
     b.add_argument("--vjp-order", type=int, default=0)

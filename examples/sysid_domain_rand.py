@@ -8,7 +8,7 @@ randomization distribution, and a single training loop recovers the whole
 ``(B, 3)`` parameter array jointly:
 
 1. draw per-scenario true params, generate expert controls with ONE batched
-   MPC solve (per-scenario params ride the fused kernels as VMEM tiles);
+   MPC solve (per-scenario params ride the fused kernels);
 2. start every scenario from the same perturbed nominal guess;
 3. minimize MSE(learned-model MPC controls, expert controls) — the analytic
    KKT backward returns an independent gradient row per scenario, so all

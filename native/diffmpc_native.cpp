@@ -2,7 +2,7 @@
 //
 // Role in this framework (SURVEY.md §2 provenance note): the reference's
 // native-code leverage was external (BLAS/cuBLAS through its array backend);
-// ours is the Pallas TPU kernels for the hot path, plus this standalone
+// ours is the Pallas GPU kernels for the hot path, plus this standalone
 // double-precision C++ engine as (a) an independent parity oracle for the
 // Python/JAX/Pallas solvers (tests/test_native_oracle.py) and (b) a
 // dependency-free host-side solver for embedding.

@@ -181,7 +181,7 @@ def test_fused_kernel_matches_xla():
     from diffmpc_tpu.mpc import _would_use_fused
 
     assert _would_use_fused(
-        config_p, B, dx, is_quad=True, constrained=True, is_lin=False
+        config_p, dx, is_quad=True, constrained=True, is_lin=False
     )
     ref = jax.jit(
         lambda x: mpc_solve(config_x, x, cost, dx, u_lower=-4.0, u_upper=4.0)

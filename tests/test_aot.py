@@ -154,42 +154,62 @@ def test_mesh_export_multi_device(tmp_path):
     np.testing.assert_allclose(got.objs, want.objs, atol=1e-4)
 
 
-def test_cross_platform_tpu_export_bakes_fused_dispatch():
-    """Build-host story: platforms=['tpu'] on a CPU host must cross-lower
-    the FUSED program (use_pallas=None resolves from the host's devices,
-    which would silently bake the slow XLA orchestration into the TPU
-    artifact — the auto-force in export_solve closes that trap). Pinned
-    by the Mosaic custom-call in the artifact's StableHLO; execution on
-    hardware is verified by scripts/check_aot_tpu.py."""
+TRITON_CALL = "__gpu$xla.gpu.triton"
+
+
+def test_cross_platform_cuda_export_bakes_fused_dispatch():
+    """Build-host story: platforms=['cuda'] on a CPU host must cross-lower
+    the FUSED program — use_pallas=None follows the export target through
+    the platform table, not the build host, which would silently bake the
+    slower XLA orchestration into the GPU artifact. Pinned by the Triton
+    kernel call in the artifact's StableHLO (exported past jax.export's
+    custom-call allowlist); execution on the card is verified by
+    chip_smoke.py."""
     config, cost, dx, x = _problem(B=1024, T=10, lqr_iter=3)
-    # Mosaic lowering rejects the f64 weak-type constants the suite's
-    # x64 mode introduces (the TPU backend is f32-only — CLAUDE.md);
-    # a real build host exports with x64 off, so the test does too.
+    # a real build host exports with x64 off (the kernels are f32)
     jax.config.update("jax_enable_x64", False)
     try:
         blob = export_solve(
             config, cost, dx, B=1024, u_lower=-2.0, u_upper=2.0,
-            platforms=["tpu"],
+            platforms=["cuda"],
         )
     finally:
         jax.config.update("jax_enable_x64", True)
     exp = load_solve(blob).exported
-    assert exp.platforms == ("tpu",)
-    mlir = exp.mlir_module()
-    assert "tpu_custom_call" in mlir, (
-        "cross-lowered TPU artifact does not contain the Mosaic kernel — "
+    assert exp.platforms == ("cuda",)
+    assert TRITON_CALL in exp.mlir_module(), (
+        "cross-lowered CUDA artifact does not contain the Triton kernel — "
         "the XLA orchestration was baked instead"
     )
 
 
+def test_load_refuses_an_artifact_from_another_jax():
+    """The Triton kernel call has no cross-version guarantee, so an
+    artifact loads only under the JAX version recorded in its manifest."""
+    import json
+    import struct
+
+    from diffmpc_tpu.aot import _MAGIC, read_manifest
+
+    config, cost, dx, x = _problem(lqr_iter=1)
+    blob = export_solve(config, cost, dx, B=x.shape[0],
+                        u_lower=-2.0, u_upper=2.0)
+    m = read_manifest(blob)
+    assert m["jax_version"] == jax.__version__
+    (mlen,) = struct.unpack(">I", blob[len(_MAGIC):len(_MAGIC) + 4])
+    payload = blob[len(_MAGIC) + 4 + mlen:]
+    old = json.dumps(dict(m, jax_version="0.0.1")).encode()
+    forged = _MAGIC + struct.pack(">I", len(old)) + old + payload
+    with pytest.raises(ValueError, match="built with jax 0.0.1"):
+        load_solve(forged)
+
+
 def test_artifact_composes_under_lax_scan():
-    """The receding-serving pattern (VERDICT r4 weak #5): a loaded
+    """The receding-serving pattern: a loaded
     artifact must be callable INSIDE a scanned loop — `exp.call` under
     `lax.scan` inlines into one compiled program, so deployed throughput
-    recovers the lax.map/scan dispatch amortization the live solve gets
-    (~2x at the bench shape; measured on chip by
-    scripts/check_aot_tpu.py --scan). Correctness: the scanned artifact
-    must equal the scanned live solve."""
+    recovers the lax.map/scan dispatch amortization the live solve gets.
+    Correctness: the scanned artifact must equal the scanned live solve."""
     config, cost, dx, x = _problem(lqr_iter=2)
     blob = export_solve(config, cost, dx, B=x.shape[0],
                         u_lower=-2.0, u_upper=2.0, warm_start=True)
@@ -220,7 +240,7 @@ def test_artifact_composes_under_lax_scan():
 
 
 def test_manifest_roundtrip_and_validation():
-    """Self-describing artifacts (VERDICT r4 #3/#4): the embedded manifest
+    """Self-describing artifacts: the embedded manifest
     must round-trip the calling convention (input NAMES in order, shapes),
     the baked config digest, bounds, platforms, vjp_order and mesh — all
     readable WITHOUT deserializing the program — and a wrong-arity call
@@ -316,6 +336,12 @@ def test_manifest_format_version_gate_and_legacy_blob():
     with pytest.raises(ValueError, match="format_version 99"):
         load_solve(forged)
 
+    # a manifest without a format version: a named ValueError, not KeyError
+    bare = json.dumps({"library": "diffmpc_tpu"}).encode()
+    forged = _MAGIC + struct.pack(">I", len(bare)) + bare + payload
+    with pytest.raises(ValueError, match="no format_version"):
+        read_manifest(forged)
+
     # truncated/corrupt blobs: clean named errors, not struct/json noise
     with pytest.raises(ValueError, match="truncated"):
         read_manifest(blob[: len(_MAGIC) + 2])  # cut inside the header
@@ -325,9 +351,9 @@ def test_manifest_format_version_gate_and_legacy_blob():
 
 
 def test_mesh_export_fused_shard_map_matches_unsharded():
-    """Pallas-speed multi-device serving artifact (VERDICT r4 missing #1):
+    """Pallas-speed multi-device serving artifact:
     with use_pallas=True, mesh= export wraps the FUSED solve in shard_map
-    (manual SPMD — the Mosaic custom call needs no GSPMD rule), so the
+    (manual SPMD — the kernel custom call needs no GSPMD rule), so the
     8-device artifact runs the mega-kernel per batch shard. Must match
     the unsharded fused solve exactly (interpret mode on CPU); the
     warm-start input shards on its batch axis."""
@@ -348,7 +374,7 @@ def test_mesh_export_fused_shard_map_matches_unsharded():
     # fused dispatch (per-device local batch) — otherwise both sides of
     # the comparison silently take the XLA path and the test is vacuous.
     assert _would_use_fused(
-        config, B // 8, dx, is_quad=True, constrained=True, is_lin=False
+        config, dx, is_quad=True, constrained=True, is_lin=False
     )
     mesh = Mesh(np.array(jax.devices()[:8]), ("batch",))
     blob = export_solve(
@@ -373,22 +399,22 @@ def test_mesh_export_fused_shard_map_matches_unsharded():
     assert int(got.info.n_iters) == int(want.info.n_iters)
 
 
-def test_mesh_export_fused_cross_lowered_tpu():
-    """The deployment target: mesh= + platforms=['tpu'] from a CPU build
-    host cross-lowers the 8-device shard_map program with the REAL Mosaic
-    kernel embedded (use_pallas=None resolves fused for a TPU target).
-    Execution on hardware: scripts/check_aot_tpu.py --sharded."""
+def test_mesh_export_fused_cross_lowered_cuda():
+    """The deployment target: mesh= + platforms=['cuda'] from a CPU build
+    host cross-lowers the 8-device shard_map program with the REAL Triton
+    kernel embedded (use_pallas=None resolves fused for a GPU target).
+    Execution on four cards: chip_smoke.py --four-cards."""
     from jax.sharding import Mesh
 
     from diffmpc_tpu.aot import read_manifest
 
     config, cost, dx, x = _problem(B=1024, T=10, lqr_iter=3)
     mesh = Mesh(np.array(jax.devices()[:8]), ("batch",))
-    jax.config.update("jax_enable_x64", False)  # Mosaic: f32-only lowering
+    jax.config.update("jax_enable_x64", False)  # the kernels are f32
     try:
         blob = export_solve(
             config, cost, dx, B=1024, u_lower=-2.0, u_upper=2.0,
-            platforms=["tpu"], mesh=mesh,
+            platforms=["cuda"], mesh=mesh,
         )
     finally:
         jax.config.update("jax_enable_x64", True)
@@ -397,9 +423,9 @@ def test_mesh_export_fused_cross_lowered_tpu():
         "axis_names": ["batch"], "shape": [8], "form": "shard_map_fused",
     }
     exp = load_solve(blob).exported
-    assert exp.platforms == ("tpu",) and exp.nr_devices == 8
-    assert "tpu_custom_call" in exp.mlir_module(), (
-        "sharded TPU artifact lost the Mosaic kernel — the XLA "
+    assert exp.platforms == ("cuda",) and exp.nr_devices == 8
+    assert TRITON_CALL in exp.mlir_module(), (
+        "sharded CUDA artifact lost the Triton kernel — the XLA "
         "orchestration was baked instead"
     )
 
@@ -428,18 +454,18 @@ def test_mesh_export_form_reflects_real_dispatch():
         export_solve(bad, cost, dx, B=16, u_lower=-2.0, u_upper=2.0,
                      mesh=mesh)
 
-    # auto-resolution (None) for a TPU target with the same non-fusable
+    # auto-resolution (None) for a GPU target with the same non-fusable
     # config: falls back to the GSPMD XLA form, manifest labeled honestly
     auto = dataclasses.replace(config, grad_method=GradMethods.FINITE_DIFF)
     jax.config.update("jax_enable_x64", False)
     try:
         blob = export_solve(auto, cost, dx, B=16, u_lower=-2.0,
-                            u_upper=2.0, mesh=mesh, platforms=["tpu"])
+                            u_upper=2.0, mesh=mesh, platforms=["cuda"])
     finally:
         jax.config.update("jax_enable_x64", True)
     m = read_manifest(blob)
     assert m["mesh"]["form"] == "gspmd_xla"
-    assert "tpu_custom_call" not in load_solve(blob).exported.mlir_module()
+    assert TRITON_CALL not in load_solve(blob).exported.mlir_module()
 
 
 def test_mesh_export_fused_rejects_indivisible_batch():
@@ -455,3 +481,34 @@ def test_mesh_export_fused_rejects_indivisible_batch():
     with pytest.raises(ValueError, match="divide"):
         export_solve(config, cost, dx, B=12, u_lower=-2.0, u_upper=2.0,
                      mesh=mesh)
+
+
+def test_export_without_an_installed_flatbuffers():
+    """jax.export's serializer needs flatbuffers, which JAX does not
+    require; without it aot.py falls back to the vendored copy, only once
+    an artifact is (de)serialized, and an artifact still round-trips
+    (fresh interpreter, package hidden)."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import sys; sys.modules['flatbuffers'] = None\n"
+        "import jax; jax.config.update('jax_platforms', 'cpu')\n"
+        "import diffmpc_tpu.aot as aot\n"
+        "assert sys.modules['flatbuffers'] is None\n"
+        "from __graft_entry__ import _pendulum_setup, _x_init\n"
+        "cfg, cost, dx = _pendulum_setup(T=4)\n"
+        "blob = aot.export_solve(cfg, cost, dx, 8, u_lower=-2.0, u_upper=2.0)\n"
+        "import flatbuffers\n"
+        "assert '_vendor' in flatbuffers.__file__, flatbuffers.__file__\n"
+        "print(aot.load_solve(blob)(_x_init(8)).us.shape)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=repo)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=repo, env=env,
+        capture_output=True, text=True, timeout=600,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "(4, 8, 1)" in out.stdout

@@ -40,7 +40,7 @@ def test_assoc_solution_matches_dense_kkt():
 )
 def test_blocked_matches_sequential(T, n, m, D):
     """Single-chip blocked parallel-in-time Riccati (same arithmetic the
-    time-sharded mesh path distributes; VERDICT r2 #7) == sequential scan.
+    time-sharded mesh path distributes) == sequential scan.
     D=T (every block one step) exercises the degenerate all-combine edge."""
     from diffmpc_tpu.ops.assoc_riccati import riccati_backward_blocked
 
@@ -68,7 +68,7 @@ def test_blocked_requires_divisible_horizon():
 
 @pytest.mark.parametrize("T,n,m", [(16, 3, 1), (64, 3, 2), (120, 2, 1)])
 def test_time_sharded_matches_sequential(T, n, m):
-    """VERDICT r1 #7: the horizon-sharded deployment of the associative
+    """the horizon-sharded deployment of the associative
     Riccati (8-device time mesh) reproduces the sequential scan."""
     import jax
     from diffmpc_tpu.ops.assoc_riccati import riccati_backward_time_sharded
@@ -107,7 +107,7 @@ def test_time_sharded_requires_divisible_horizon():
     "covered by the tests above)",
 )
 def test_time_sharded_crossover_measurement():
-    """Crossover measurement (VERDICT r1 #7 'done' criterion): at long T and
+    """Crossover measurement: at long T and
     small B on the 8-device CPU mesh, the time-sharded assoc path beats the
     single-stream sequential scan (per-device sequential depth T/D + D vs
     T). Prints timings; asserts only a generous bound to avoid CI flake."""

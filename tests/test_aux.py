@@ -84,49 +84,25 @@ def test_host_local_to_global_single_host():
     np.testing.assert_allclose(np.asarray(arr), local)
 
 
-def test_bench_bands_warn_and_regression_rule(tmp_path):
-    """Bench regression tracking (VERDICT r4 #10): a synthetic low reading
-    trips a WARN against the checked-in bands; the same row low in two
-    consecutive recorded runs is promoted to REGRESSION by the history
-    rule; in-band readings stay silent."""
-    from diffmpc_tpu.utils.bench_bands import (
-        check_bands, evaluate_with_history, format_warnings, load_bands,
-    )
+@pytest.mark.parametrize("env_dir", [None, "elsewhere"])
+def test_compile_cache_rule(env_dir, monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR set: the helper touches nothing (JAX reads
+    the variable itself). Unset: the cache goes to the fixed <repo>/.jax_cache."""
+    from diffmpc_tpu.utils import compile_cache
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    bands_path = os.path.join(repo, "bench_bands.json")
-    bands = load_bands(bands_path)
-    assert "solves_per_s" in bands and "riccati_pass_ms" in bands
-
-    # in-band: silent (values inside every recorded r2-r4 band)
-    good = {"solves_per_s": 1_000_000.0, "riccati_pass_ms": 0.7,
-            "roofline_frac": 0.35}
-    assert check_bands(good, bands) == []
-
-    # synthetic 20%-regression reading: the r4 gap this rule exists for
-    bad = {"solves_per_s": 790_000.0, "riccati_pass_ms": 1.4}
-    v = check_bands(bad, bands)
-    assert {x["row"] for x in v} == {"solves_per_s", "riccati_pass_ms"}
-    assert {x["kind"] for x in v} == {"below_min", "above_max"}
-
-    # history rule: first low run -> WARN only; second consecutive -> REGRESSION
-    hist = str(tmp_path / "hist.jsonl")
-    v1, r1 = evaluate_with_history(bad, bands_path, hist)
-    assert r1 == [] and len(v1) == 2
-    lines1 = format_warnings(v1, r1)
-    assert all(l.startswith("WARN") for l in lines1)
-    assert any("solves_per_s" in l and "790000" in l for l in lines1)
-
-    v2, r2 = evaluate_with_history(bad, bands_path, hist)
-    assert r2 == ["riccati_pass_ms", "solves_per_s"]
-    lines2 = format_warnings(v2, r2)
-    assert all(l.startswith("REGRESSION") for l in lines2)
-
-    # recovery resets the rule: in-band run, then one low run is WARN again
-    v3, r3 = evaluate_with_history(good, bands_path, hist)
-    assert v3 == [] and r3 == []
-    v4, r4 = evaluate_with_history(bad, bands_path, hist)
-    assert r4 == []
-
-    # budget-dropped rows (absent) are not violations
-    assert check_bands({}, bands) == []
+    before = jax.config.jax_compilation_cache_dir
+    if env_dir is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    else:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / env_dir))
+    try:
+        got = compile_cache.enable_compile_cache()
+        if env_dir is None:
+            assert got == os.path.join(repo, ".jax_cache")
+            assert jax.config.jax_compilation_cache_dir == got
+        else:
+            assert got is None
+            assert jax.config.jax_compilation_cache_dir == before
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

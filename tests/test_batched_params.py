@@ -4,7 +4,7 @@ Beyond the reference surface: the reference's env params are module-level
 scalars shared by the whole batch ([RECALL: mpc/env_dx/pendulum.py params]);
 here ``params`` may carry a leading scenario axis ``(B, P)`` so every
 scenario solves under its own physics, on both the XLA path and the fused
-Pallas kernels (params staged as (S, 128) VMEM tiles), with per-scenario
+Pallas kernels (params staged as one vector per program tile), with per-scenario
 gradients through the analytic KKT backward.
 """
 
@@ -17,6 +17,7 @@ import pytest
 
 from diffmpc_tpu import MPCConfig, QuadCost, mpc_solve
 from diffmpc_tpu.models import CartpoleDx, PendulumDx
+from diffmpc_tpu.mpc import _would_use_fused
 
 
 def _problem(B, T):
@@ -107,9 +108,7 @@ def test_per_scenario_gradients_match_group_grads():
 
 
 def test_fused_kernel_batched_params_matches_xla():
-    # B=512: no dispatch requirement (the floor was removed 2026-08-18);
-    # interpret cost is B-independent up to the 1024-lane tile, so a full
-    # half-tile costs the same as tiny B and exercises realistic padding.
+    # B=512: several program tiles with per-scenario params each.
     B, T = 512, 8
     dx, cost, x_init = _problem(B, T)
     params_b, _ = _two_group_params(dx, B)
@@ -124,7 +123,7 @@ def test_fused_kernel_batched_params_matches_xla():
     from diffmpc_tpu.mpc import _would_use_fused
 
     assert _would_use_fused(
-        config_p, B, dxb, is_quad=True, constrained=True, is_lin=False
+        config_p, dxb, is_quad=True, constrained=True, is_lin=False
     )
 
     ref = jax.jit(
@@ -142,7 +141,7 @@ def test_fused_kernel_batched_params_matches_xla():
 
 
 def test_fused_kernel_batched_params_gradients():
-    B, T = 512, 8  # interpret cost is ~flat to the 1024-lane tile (inputs pad)
+    B, T = 512, 8
     dx, cost, x_init = _problem(B, T)
     params_b, _ = _two_group_params(dx, B)
     config_p = MPCConfig(
@@ -152,7 +151,7 @@ def test_fused_kernel_batched_params_gradients():
     from diffmpc_tpu.mpc import _would_use_fused
 
     assert _would_use_fused(
-        config_p, B, dx.replace(params=params_b),
+        config_p, dx.replace(params=params_b),
         is_quad=True, constrained=True, is_lin=False,
     )
     config_x = dataclasses.replace(
@@ -287,9 +286,9 @@ def test_per_scenario_sysid_improves():
 
 def test_cartpole_fused_batched_params_matches_xla():
     """Per-scenario params on the SECOND env family (n=5 cartpole — its
-    entries_step linearizes via in-kernel jvp, so the (S, 128) params tiles
+    entries_step linearizes via in-kernel jvp, so the per-scenario params
     must broadcast through that too)."""
-    B, T = 512, 8  # interpret cost is ~flat to the 1024-lane tile (inputs pad)
+    B, T = 512, 8
     cp = CartpoleDx.default(jnp.float32)
     qc, pc = cp.get_true_obj()
     cost = QuadCost(jnp.diag(qc), pc)
@@ -312,7 +311,7 @@ def test_cartpole_fused_batched_params_matches_xla():
     from diffmpc_tpu.mpc import _would_use_fused
 
     assert _would_use_fused(
-        config_p, B, cpb, is_quad=True, constrained=True, is_lin=False
+        config_p, cpb, is_quad=True, constrained=True, is_lin=False
     )
 
     ref = jax.jit(
@@ -328,55 +327,36 @@ def test_cartpole_fused_batched_params_matches_xla():
     assert close.mean() > 0.95, close.mean()
 
 
-def test_streaming_rollout_batched_params_matches_xla():
-    """The HBM-streaming line-search rollout (long-horizon path) with
-    per-scenario params: exercises the (S, 128) VMEM params staging +
-    in-kernel tile reads on the third kernel family, pinned against the
-    XLA ladder in interpret mode."""
-    from diffmpc_tpu.ops.linearize import linearize_dynamics
-    from diffmpc_tpu.ops.lqr import lqr_linesearch_rollout, riccati_backward
-    from diffmpc_tpu.ops.pallas.rollout_stream import (
-        linesearch_rollout_pallas_stream,
-    )
-
-    T, B = 9, 16
-    dx, _, x_init = _problem(B, T)
+def test_long_horizon_batched_params_fused_matches_xla():
+    """Per-scenario params through the mega-kernel at a long horizon:
+    exercises the per-scenario parameter vectors (one per program tile)
+    across many in-kernel steps, pinned against the XLA orchestration at
+    a single iLQR step in interpret mode."""
+    T, B = 48, 40
+    dx, cost, x_init = _problem(B, T)
     params_b, _ = _two_group_params(dx, B)
     dxb = dx.replace(params=params_b)
-    q, p = dx.get_true_obj()
-    u_hat = jnp.zeros((T, B, 1), jnp.float32)
-
-    def roll(x, ut):
-        return dxb.forward(x, ut), x
-
-    _, x_hat = jax.lax.scan(roll, x_init, u_hat)
-    C = jnp.broadcast_to(jnp.diag(q), (T, B, 4, 4)).astype(jnp.float32)
-    c = jnp.broadcast_to(p, (T, B, 4)).astype(jnp.float32)
-    lin = linearize_dynamics(dxb, x_hat, u_hat)
-    tau_hat = jnp.concatenate([x_hat, u_hat], -1)
-    c_delta = c + jnp.einsum("tbij,tbj->tbi", C, tau_hat)
-    lo = jnp.full((T, B, 1), -2.0, jnp.float32)
-    hi = jnp.full((T, B, 1), 2.0, jnp.float32)
-    res = riccati_backward(
-        C, c_delta, lin.F, None, 3, u_lower=lo, u_upper=hi, u_hat=u_hat
+    kw = dict(
+        n_state=3, n_ctrl=1, T=T, lqr_iter=1, eps=0.0,
+        not_improved_lim=10**6, exit_unconverged=False,
+        detach_unconverged=False,
+    )
+    config_p = MPCConfig(**kw, use_pallas=True, pallas_interpret=True)
+    config_x = MPCConfig(**kw, use_pallas=False)
+    assert _would_use_fused(
+        config_p, dxb, is_quad=True, constrained=True, is_lin=False
     )
 
-    ref = lqr_linesearch_rollout(
-        x_init, C, c, lin.F, lin.f, res.K, res.k, x_hat, u_hat,
-        u_lower=lo, u_upper=hi,
-        dynamics_fn=lambda x, u, t: dxb.forward(x, u),
-    )
-    out = linesearch_rollout_pallas_stream(
-        x_init, C, c, None, None, res.K, res.k, x_hat, u_hat,
-        u_lower=lo, u_upper=hi, dyn=dxb, interpret=True,
-    )
-    np.testing.assert_allclose(np.asarray(out.alpha), np.asarray(ref.alpha))
+    def run(cfg):
+        return jax.jit(
+            lambda x: mpc_solve(cfg, x, cost, dxb, u_lower=-2.0, u_upper=2.0)
+        )(x_init)
+
+    out, ref = run(config_p), run(config_x)
     np.testing.assert_allclose(np.asarray(out.us), np.asarray(ref.us), atol=5e-4)
     np.testing.assert_allclose(
         np.asarray(out.objs), np.asarray(ref.objs), rtol=5e-4, atol=5e-4
     )
-
-
 def test_autodiff_grad_method_batched_params():
     """GradMethods.AUTO_DIFF must route through the batched-aware jacfwd
     (closing over (B, P) params inside the per-sample vmap broadcasts wrong

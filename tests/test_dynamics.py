@@ -186,7 +186,7 @@ def test_get_frame_renders():
 
 
 def test_nn_dynamics_entries_step_matches_forward():
-    """VERDICT r1 #8: NNDynamics is kernel-fusable — the entry-tile MLP step
+    """NNDynamics is kernel-fusable — the entry-tile MLP step
     equals forward() on the same inputs (and kernel_params round-trips the
     weight layout)."""
     import numpy as np

@@ -32,7 +32,7 @@ def test_riccati_matches_dense_kkt(T, B, n, m):
 
 
 def test_riccati_f32_parity():
-    """f32 (TPU-native dtype) agrees with the f64 oracle to the 1e-4 parity
+    """f32 (the kernels' dtype) agrees with the f64 oracle to the 1e-4 parity
     budget (BASELINE.md control-sequence parity row)."""
     rng = np.random.default_rng(1)
     T, B, n, m = 20, 16, 4, 2

@@ -1,4 +1,4 @@
-"""Real multi-PROCESS process-group tests (SURVEY.md §5.8; VERDICT r3 #4).
+"""Real multi-PROCESS process-group tests (SURVEY.md §5.8).
 
 Everything else distributed in this suite runs on a single-process
 8-virtual-device mesh, which never executes ``distributed.initialize()``'s
@@ -138,8 +138,8 @@ def test_two_process_dp_train_step_matches_single_process():
 
 
 def test_initialize_explicit_args_raise_on_inconsistency():
-    """Explicit-argument ``initialize()`` must FAIL LOUDLY (VERDICT r3 weak
-    #6): a bad topology must never silently degrade to single-process and
+    """Explicit-argument ``initialize()`` must FAIL LOUDLY: a bad topology
+    must never silently degrade to single-process and
     compute un-psummed gradients. In THIS process JAX backends are already
     live, so any explicit call raises the backends-live error — still
     loud, but it exercises call-ordering, not argument validation; the
@@ -205,7 +205,7 @@ print("REENTRY_OK")
 
 def test_initialize_auto_path_raises_on_malformed_cluster_env():
     """A MALFORMED cluster environment must fail loudly on the
-    auto-discovery path (VERDICT r4 weak #1): the benign single-process
+    auto-discovery path: the benign single-process
     ValueError is matched by message ('coordinator_address should be
     defined'); any other ValueError — here a partial cluster env var
     (JAX_COORDINATOR_ADDRESS set, process count/id absent) — must raise,

@@ -47,7 +47,7 @@ def test_jax_engine_matches_native_box(m):
     _, us64, objs64 = ctrl(as64(x_init), QuadCost(as64(C), as64(c)), LinDx(as64(F), as64(f)))
     np.testing.assert_allclose(np.asarray(us64), us_n, atol=1e-7)
     np.testing.assert_allclose(np.asarray(objs64), objs_n, rtol=1e-9, atol=1e-9)
-    # f32 (the TPU dtype): parity budget with a small allowance for the f32
+    # f32 (the GPU path's dtype): parity budget with a small allowance for the f32
     # resolution of the fixed point itself
     as32 = lambda a: jnp.asarray(a, jnp.float32)
     _, us, objs = ctrl(as32(x_init), QuadCost(as32(C), as32(c)), LinDx(as32(F), as32(f)))

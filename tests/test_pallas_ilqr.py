@@ -112,7 +112,7 @@ def test_mpc_solve_dispatches_to_fused(monkeypatch):
 
     monkeypatch.setattr(ilqr_mod, "ilqr_solve_fused", counting)
 
-    B, T = 520, 5  # >1 tile-half exercises padding; interpret cost ~flat in B
+    B, T = 520, 5  # not a multiple of the tile: exercises padding
     dx, C, c, x_init, lo, hi = _pendulum_problem(B, T)
     config = MPCConfig(
         n_state=3, n_ctrl=1, T=T, lqr_iter=2, exit_unconverged=False,
@@ -125,11 +125,9 @@ def test_mpc_solve_dispatches_to_fused(monkeypatch):
 
 
 def test_tiny_batch_dispatches_fused_and_matches_xla(monkeypatch):
-    """Round 2: the B >= TILE_B // 2 dispatch floor is removed — hardware
-    A/B (scripts/ab_small_batch.py 2026-08-18) shows the padded mega-kernel
-    beats the XLA path at every batch size down to B=1 (0.74-0.90x at
-    B<=64). Odd tiny B must (a) genuinely dispatch the mega-kernel and
-    (b) agree with the XLA orchestration on a fixed-trip config."""
+    """The dispatch has no batch floor: the kernel pads any B up to one
+    tile. Odd tiny B must (a) genuinely dispatch the mega-kernel and (b)
+    agree with the XLA orchestration on a fixed-trip config."""
     import diffmpc_tpu.ops.pallas.ilqr as ilqr_mod
 
     calls = {"n": 0}
@@ -156,7 +154,7 @@ def test_tiny_batch_dispatches_fused_and_matches_xla(monkeypatch):
         from diffmpc_tpu.mpc import _would_use_fused
 
         assert _would_use_fused(
-            config_p, B, dx, is_quad=True, constrained=True, is_lin=False
+            config_p, dx, is_quad=True, constrained=True, is_lin=False
         )
         before = calls["n"]
         out = jax.jit(
@@ -180,7 +178,7 @@ def test_tiny_batch_dispatches_fused_and_matches_xla(monkeypatch):
 
 
 def test_fused_warm_start_matches_xla():
-    """VERDICT r1 #2: u_init threads into the mega-kernel's init rollout —
+    """u_init threads into the mega-kernel's init rollout —
     warm-started fused solve == warm-started XLA solve (fixed-trip config)."""
     B, T = 48, 8
     dx, C, c, x_init, lo, hi = _pendulum_problem(B, T)
@@ -219,7 +217,7 @@ def test_fused_warm_start_matches_xla():
 
 
 def test_fused_stats_truthful():
-    """VERDICT r1 #4: MPCInfo semantics are path-independent — the kernel
+    """MPCInfo semantics are path-independent — the kernel
     reports real per-scenario iteration counts and pnqp iterations instead
     of fabricated constants."""
     B, T = 48, 8
@@ -247,6 +245,59 @@ def test_fused_stats_truthful():
     )
     assert (np.asarray(one.n_iters) == 1).all()
     assert np.asarray(one.converged).all()
+
+
+def test_per_scenario_iters_agree_across_paths():
+    """``MPCInfo.iters`` counts the iterations each scenario ran before it
+    froze, the same way on both paths; ``n_iters`` is its max."""
+    B, T = 48, 8
+    dx, C, c, x_init, _, _ = _pendulum_problem(B, T)
+    config = MPCConfig(
+        n_state=3, n_ctrl=1, T=T, lqr_iter=10, eps=1e-4,
+        exit_unconverged=False, detach_unconverged=False,
+    )
+    infos = [
+        mpc_solve(
+            dataclasses.replace(config, **kw), x_init, QuadCost(C, c), dx,
+            u_lower=-2.0, u_upper=2.0,
+        ).info
+        for kw in (dict(use_pallas=False), dict(pallas_interpret=True))
+    ]
+    ref, fused = infos
+    it = np.asarray(ref.iters)
+    assert it.shape == (B,) and len(np.unique(it)) > 1
+    assert int(ref.n_iters) == it.max()
+    np.testing.assert_array_equal(np.asarray(fused.iters), it)
+    assert int(fused.n_iters) == it.max()
+
+
+@pytest.mark.parametrize("path", ["xla", "fused"])
+def test_frozen_scenario_keeps_its_answer(path):
+    """A scenario that froze keeps its best trajectory while the rest of
+    the batch iterates on: its answer does not depend on ``lqr_iter``
+    beyond the iteration it froze at (nor on its batch neighbours)."""
+    B, T = 48, 8
+    dx, C, c, x_init, _, _ = _pendulum_problem(B, T)
+    kw = dict(use_pallas=False) if path == "xla" else dict(pallas_interpret=True)
+    sols = [
+        mpc_solve(
+            MPCConfig(
+                n_state=3, n_ctrl=1, T=T, lqr_iter=L, eps=1e-2,
+                exit_unconverged=False, detach_unconverged=False, **kw,
+            ),
+            x_init, QuadCost(C, c), dx, u_lower=-2.0, u_upper=2.0,
+        )
+        for L in (3, 10)
+    ]
+    short, long = sols
+    frozen = np.asarray(short.info.converged)
+    assert frozen.sum() >= B // 2 and int(long.info.n_iters) > 3
+    np.testing.assert_array_equal(
+        np.asarray(long.us)[:, frozen], np.asarray(short.us)[:, frozen]
+    )
+    np.testing.assert_array_equal(
+        np.asarray(long.info.iters)[frozen], np.asarray(short.info.iters)[frozen]
+    )
 
 
 def test_mpc_solve_fused_path_accepts_warm_start(monkeypatch):
@@ -282,7 +333,7 @@ def test_mpc_solve_fused_path_accepts_warm_start(monkeypatch):
 
 
 def test_fused_nn_dynamics_matches_xla():
-    """Learned NN dynamics on the mega-kernel path (VERDICT r1 #8): the
+    """Learned NN dynamics on the mega-kernel path: the
     fused solve with an MLP `entries_step` matches the XLA orchestration."""
     from diffmpc_tpu.models import NNDynamics
 
@@ -359,44 +410,80 @@ def test_fused_multi_control_matches_xla():
     np.testing.assert_allclose(np.asarray(out.us), np.asarray(ref.us), atol=1e-3)
 
 
-def test_wide_tile_auto_upgrade_matches_default():
-    """Round-3 tile-height auto-upgrade: at B=2048 the mega-kernel picks
-    sublane=16 (two vregs per entry-op — measured 1.15-1.35x on hardware,
-    scripts/ab_sublane.py) and must agree with a forced-default-height
-    solve. Also pins the policy: upgrade requires exact divisibility and
-    VMEM fit; B=1024 and B=1536 stay at 8."""
-    from diffmpc_tpu.ops.pallas.ilqr import _pick_sublane, ilqr_solve_fused
-    from diffmpc_tpu.mpc import _expand_cost
+@pytest.mark.parametrize("tile", [32, 64])
+def test_tile_width_does_not_change_results(tile, monkeypatch):
+    """The tile width (scenarios per program, one per GPU thread) is a
+    layout choice only: a narrower tile must give the same solve as the
+    default, padding included (B=200 fills no tile exactly)."""
+    import diffmpc_tpu.ops.pallas.riccati as ric
 
-    assert _pick_sublane(1024, 20, 3, 1) == 8
-    assert _pick_sublane(1536, 20, 3, 1) == 8  # not divisible by 2048
-    assert _pick_sublane(2048, 20, 3, 1) == 16
-    assert _pick_sublane(65536, 20, 3, 1) == 32
-    # VMEM gate: cartpole T=20 fits 16 but not 32 at the default budget
-    assert _pick_sublane(4096, 20, 5, 1) == 16
-
-    B, T = 2048, 6
+    B, T = 200, 6
     dx, C, c, x_init, lo, hi = _pendulum_problem(B, T)
     kw = dict(
         lqr_iter=2, pnqp_iter=4, reg=1e-7, decay=0.2,
         max_linesearch_iter=6, eps=0.0, not_improved_lim=10**6,
         interpret=True,
     )
-    up = ilqr_solve_fused(x_init, C, c, dx, lo, hi, **kw)
-    import diffmpc_tpu.ops.pallas.ilqr as ilqr_mod
+    base = ilqr_solve_fused(x_init, C, c, dx, lo, hi, **kw)
+    monkeypatch.setattr(ric, "TILE", tile)
+    narrow = ilqr_solve_fused(x_init, C, c, dx, lo, hi, **kw)
+    np.testing.assert_allclose(
+        np.asarray(narrow.us), np.asarray(base.us), atol=1e-6
+    )
+    np.testing.assert_allclose(
+        np.asarray(narrow.objs), np.asarray(base.objs), rtol=1e-6
+    )
+    np.testing.assert_array_equal(
+        np.asarray(narrow.n_iters), np.asarray(base.n_iters)
+    )
 
-    orig = ilqr_mod._pick_sublane
-    ilqr_mod._pick_sublane = lambda *a, **k: 8
-    try:
-        base = ilqr_solve_fused(x_init, C, c, dx, lo, hi, **kw)
-    finally:
-        ilqr_mod._pick_sublane = orig
-    np.testing.assert_allclose(
-        np.asarray(up.us), np.asarray(base.us), atol=1e-5
+
+@pytest.mark.parametrize("T", [40, 128, 512])
+def test_long_horizon_fused_matches_xla(T):
+    """One kernel serves every horizon (its working buffers live in device
+    memory, not in a fixed on-chip budget). Regulation around the hanging
+    pendulum (a stable equilibrium, control weight 0.1, so the box clamps a
+    few steps and no clamp rides an unstable trajectory) is well
+    conditioned at any horizon, so a single iLQR step is compared tightly
+    against the XLA orchestration. (Swing-up is not: the u=0 initial
+    rollout falls, and a swing-up step at T>=128 departs from an f64 solve
+    by the whole box width on some scenarios, on either path.)"""
+    B = 64
+    dx = PendulumDx.default(jnp.float32)
+    q, _ = dx.get_true_obj()
+    q = q.at[3].set(0.1)
+    p = -q * jnp.asarray([-1.0, 0.0, 0.0, 0.0], jnp.float32)
+    rng = np.random.default_rng(706 + T)
+    th = np.pi + rng.uniform(-0.5, 0.5, B)
+    x_init = jnp.asarray(
+        np.stack([np.cos(th), np.sin(th), rng.uniform(-0.5, 0.5, B)], -1),
+        jnp.float32,
     )
-    np.testing.assert_allclose(
-        np.asarray(up.objs), np.asarray(base.objs), rtol=1e-6
+    C = jnp.broadcast_to(jnp.diag(q), (T, B, 4, 4)).astype(jnp.float32)
+    c = jnp.broadcast_to(p, (T, B, 4)).astype(jnp.float32)
+    lo = jnp.full((T, B, 1), -2.0, jnp.float32)
+    hi = jnp.full((T, B, 1), 2.0, jnp.float32)
+    config = MPCConfig(
+        n_state=3, n_ctrl=1, T=T, lqr_iter=1, eps=0.0,
+        not_improved_lim=10**6, exit_unconverged=False,
+        detach_unconverged=False, use_pallas=False,
     )
+    ref = jax.jit(
+        lambda x: mpc_solve(config, x, QuadCost(C, c), dx, u_lower=-2.0, u_upper=2.0)
+    )(x_init)
+    out = ilqr_solve_fused(
+        x_init, C, c, dx, lo, hi,
+        lqr_iter=1, eps=0.0, not_improved_lim=10**6, interpret=True,
+    )
+    # the box is active on some steps (the test would be weaker without it)
+    assert np.any(np.abs(np.asarray(ref.us)) > 1.999)
+    # f32 summation order differs between the two paths: controls within
+    # 5e-4 (0.01% of the box width); the objective sums T per-step costs,
+    # so within 1e-4 per 20 steps
+    np.testing.assert_allclose(
+        np.asarray(out.objs), np.asarray(ref.objs), rtol=0, atol=1e-4 * T / 20
+    )
+    np.testing.assert_allclose(np.asarray(out.us), np.asarray(ref.us), atol=5e-4)
 
 
 def test_vmap_over_instances_fused_path():
@@ -404,10 +491,10 @@ def test_vmap_over_instances_fused_path():
     params must ride the fused kernels (pallas_call's batching rule adds a
     leading grid dimension) and agree exactly with per-instance solves.
 
-    Verified on real TPU hardware as well (fwd + grad through the fused KKT
-    backward); this pins the interpret-mode semantics.
+    This pins the interpret-mode semantics (fwd + grad through the fused
+    KKT backward).
     """
-    B, T = 512, 8  # interpret cost is ~flat to the 1024-lane tile (inputs pad)
+    B, T = 512, 8
     dx, C, c, x_init, _, _ = _pendulum_problem(B, T)
     config = MPCConfig(
         n_state=3, n_ctrl=1, T=T, lqr_iter=4, exit_unconverged=False,
@@ -416,7 +503,7 @@ def test_vmap_over_instances_fused_path():
     from diffmpc_tpu.mpc import _would_use_fused
 
     assert _would_use_fused(
-        config, B, dx, is_quad=True, constrained=True, is_lin=False
+        config, dx, is_quad=True, constrained=True, is_lin=False
     )
     params = jnp.stack([dx.params, dx.params * 1.05, dx.params * 0.95])
 
@@ -447,8 +534,7 @@ def test_vmap_over_instances_fused_path():
 
 def test_u_zero_I_on_fused_path(monkeypatch):
     """u_zero_I realizes as the degenerate box lo = hi = 0 — the in-kernel
-    pnqp must hold those dims at exactly zero through the mega-kernel
-    (any B dispatches since the 2026-08-18 floor removal; 512 pads one tile)."""
+    pnqp must hold those dims at exactly zero through the mega-kernel."""
     from diffmpc_tpu.models import NNDynamics
     import diffmpc_tpu.ops.pallas.ilqr as ilqr_mod
 
@@ -505,7 +591,7 @@ def test_slew_penalty_rides_fused_path(monkeypatch):
 
     monkeypatch.setattr(ilqr_mod, "ilqr_solve_fused", counting)
 
-    B, T = 520, 5  # odd B exercises tile padding; interpret cost ~flat in B
+    B, T = 520, 5  # not a multiple of the tile: exercises padding
     dx, C, c, x_init, _, _ = _pendulum_problem(B, T)
     prev_u = jnp.full((B, 1), 0.5, jnp.float32)
     kw = dict(u_lower=-2.0, u_upper=2.0, prev_ctrl=prev_u)
@@ -546,10 +632,9 @@ def test_fused_shape_fuzz_vs_xla(seed):
     hidden sizes, box tightness, warm start) through `ilqr_solve_fused`
     directly (interpret), compared against the XLA orchestration at
     lqr_iter=1 / eps=0 (deterministic fixed-trip semantics, so tight
-    tolerances hold). Prior mpc_solve-level fuzzing at B < TILE_B // 2
-    silently compared the XLA path with itself (CLAUDE.md test-honesty
-    rule); this sweep exercises the in-kernel jvp linearization, m>=1 pnqp,
-    and masked gain solves across layouts the named-env tests never hit."""
+    tolerances hold). This sweep exercises the in-kernel jvp linearization,
+    m>=1 pnqp, and masked gain solves across layouts the named-env tests
+    never hit."""
     from diffmpc_tpu.models import NNDynamics
 
     rng = np.random.default_rng(2000 + seed)
@@ -601,107 +686,13 @@ def test_fused_shape_fuzz_vs_xla(seed):
     np.testing.assert_allclose(np.asarray(out.us), np.asarray(ref.us), atol=2e-3)
 
 
-def test_rolled_loops_match_unrolled():
-    """The fori_loop (rolled) mega-kernel variants must match the round-1
-    Python unrolls (iteration body is state-in-scratch-refs; ladder alpha
-    carried as a *= decay tile whose cumulative f32 product drifts <= ~3e-7
-    relative from the unrolled decay**k scalars — hence tight tolerances,
-    not bitwise). Guards the pending default flip (compile-time O(1) in
-    lqr_iter x n_alpha)."""
-    import numpy as np
-
-    from diffmpc_tpu import QuadCost
-    from diffmpc_tpu.mpc import _expand_bound, _expand_cost
-    from diffmpc_tpu.models import PendulumDx
-
-    B, T = 16, 8
-    dx = PendulumDx.default(jnp.float32)
-    q, p = dx.get_true_obj()
-    cost = _expand_cost(QuadCost(jnp.diag(q), p), T, B, jnp.float32)
-    lo = _expand_bound(-2.0, T, B, 1, jnp.float32)
-    hi = _expand_bound(2.0, T, B, 1, jnp.float32)
-    rng = np.random.default_rng(5)
-    th = rng.uniform(-np.pi, np.pi, B)
-    x = jnp.asarray(
-        np.stack([np.cos(th), np.sin(th), rng.uniform(-1, 1, B)], -1),
-        jnp.float32,
-    )
-    outs = {
-        u: ilqr_solve_fused(
-            x, cost.C, cost.c, dx, lo, hi, lqr_iter=4, eps=1e-5,
-            interpret=True, unroll=u,
-        )
-        for u in (True, False)
-    }
-    np.testing.assert_allclose(
-        np.asarray(outs[True].us), np.asarray(outs[False].us), atol=1e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(outs[True].objs), np.asarray(outs[False].objs),
-        rtol=1e-5, atol=1e-5,
-    )
-    np.testing.assert_array_equal(
-        np.asarray(outs[True].n_iters), np.asarray(outs[False].n_iters)
-    )
-
-
-def test_rollout_kernel_rolled_ladder_matches_unrolled():
-    """Same guard for the standalone line-search rollout kernel's ladder."""
-    import numpy as np
-
-    from diffmpc_tpu.models import PendulumDx
-    from diffmpc_tpu.ops.linearize import linearize_dynamics
-    from diffmpc_tpu.ops.lqr import riccati_backward
-    from diffmpc_tpu.ops.pallas.rollout import linesearch_rollout_pallas
-
-    B, T = 24, 7
-    dx = PendulumDx.default(jnp.float32)
-    q, p = dx.get_true_obj()
-    rng = np.random.default_rng(6)
-    th = rng.uniform(-np.pi, np.pi, B)
-    x_init = jnp.asarray(
-        np.stack([np.cos(th), np.sin(th), rng.uniform(-1, 1, B)], -1),
-        jnp.float32,
-    )
-    u_hat = jnp.zeros((T, B, 1), jnp.float32)
-
-    def roll(xx, ut):
-        return dx.forward(xx, ut), xx
-
-    _, x_hat = jax.lax.scan(roll, x_init, u_hat)
-    C = jnp.broadcast_to(jnp.diag(q), (T, B, 4, 4)).astype(jnp.float32)
-    c = jnp.broadcast_to(p, (T, B, 4)).astype(jnp.float32)
-    lin = linearize_dynamics(dx, x_hat, u_hat)
-    tau_hat = jnp.concatenate([x_hat, u_hat], -1)
-    c_delta = c + jnp.einsum("tbij,tbj->tbi", C, tau_hat)
-    lo = jnp.full((T, B, 1), -2.0, jnp.float32)
-    hi = jnp.full((T, B, 1), 2.0, jnp.float32)
-    res = riccati_backward(
-        C, c_delta, lin.F, None, 3, u_lower=lo, u_upper=hi, u_hat=u_hat
-    )
-    outs = {
-        u: linesearch_rollout_pallas(
-            x_init, C, c, lin.F, lin.f, res.K, res.k, x_hat, u_hat,
-            u_lower=lo, u_upper=hi, dyn=dx, interpret=True, unroll=u,
-        )
-        for u in (True, False)
-    }
-    np.testing.assert_allclose(
-        np.asarray(outs[True].us), np.asarray(outs[False].us), atol=1e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(outs[True].alpha), np.asarray(outs[False].alpha),
-        rtol=1e-5,
-    )
-
-
 @pytest.mark.parametrize("seed", range(6))
 def test_fused_knob_combination_fuzz_vs_xla(seed):
     """Knob-INTERACTION fuzz through the mega-kernel (the shape fuzz above
     varies layouts; this varies the knob subset): random combinations of
     {warm start, delta_u, u_zero_I, per-scenario params} in box mode at
     lqr_iter=1 / eps=0 (deterministic fixed-trip semantics) must match the
-    XLA path tightly, through the real mpc_solve dispatch (B >= 512 so the
+    XLA path tightly, through the real mpc_solve dispatch (asserting the
     fused path actually engages — CLAUDE.md test-honesty rule)."""
     from diffmpc_tpu.mpc import _would_use_fused
 
@@ -741,7 +732,7 @@ def test_fused_knob_combination_fuzz_vs_xla(seed):
     config_p = MPCConfig(**kw, use_pallas=True, pallas_interpret=True)
     config_x = MPCConfig(**kw, use_pallas=False)
     assert _would_use_fused(
-        config_p, B, dx, is_quad=True, constrained=True, is_lin=False
+        config_p, dx, is_quad=True, constrained=True, is_lin=False
     )
 
     def run(cfg):
@@ -764,89 +755,3 @@ def test_fused_knob_combination_fuzz_vs_xla(seed):
     if use_delta:
         base = u_init if u_init is not None else jnp.zeros_like(got.us)
         assert float(jnp.max(jnp.abs(got.us - base))) <= 0.4 + 1e-5
-
-
-def test_hoist_lin_matches_in_sweep_linearization():
-    """`hoist_lin=True` (round-5 experiment: the V-independent
-    linearization + cd computed in a data-parallel pre-pass instead of
-    inside the serial Riccati chain) must reproduce the default kernel —
-    identical math, different schedule; tolerance covers XLA
-    reassociation across the two trace contexts. Hardware verdict
-    (wash for analytic envs, +6.5% for MLP dynamics, kept opt-in) is in
-    DESIGN.md §3 / scripts/ab_hoist_lin.py."""
-    import numpy as np
-
-    from diffmpc_tpu import QuadCost
-    from diffmpc_tpu.mpc import _expand_cost
-    from diffmpc_tpu.models import NNDynamics, PendulumDx
-    from diffmpc_tpu.ops.pallas.ilqr import ilqr_solve_fused
-
-    T, B = 8, 512
-    rng = np.random.default_rng(3)
-    th = rng.uniform(-np.pi, np.pi, B)
-    x = jnp.asarray(
-        np.stack([np.cos(th), np.sin(th), rng.uniform(-1, 1, B)], -1),
-        jnp.float32,
-    )
-    lo = jnp.full((T, B, 1), -2.0, jnp.float32)
-    hi = jnp.full((T, B, 1), 2.0, jnp.float32)
-    for dx in (
-        PendulumDx.default(jnp.float32),
-        NNDynamics.init(jax.random.PRNGKey(1), 3, 1, hidden=(8, 8),
-                        residual=True),
-    ):
-        q, p = PendulumDx.default(jnp.float32).get_true_obj()
-        qc = _expand_cost(QuadCost(jnp.diag(q), p), T, B, jnp.float32)
-        # single iteration: same fixed point, tight (CLAUDE.md — multi-
-        # iteration comparisons on chaotic scenarios amplify f32
-        # reassociation noise and need chaos tolerance)
-        a1 = ilqr_solve_fused(x, qc.C, qc.c, dx, lo, hi, lqr_iter=1,
-                              interpret=True)
-        b1 = ilqr_solve_fused(x, qc.C, qc.c, dx, lo, hi, lqr_iter=1,
-                              interpret=True, hoist_lin=True)
-        np.testing.assert_allclose(
-            np.asarray(a1.us), np.asarray(b1.us), atol=2e-5
-        )
-        # multi-iteration: chaos tolerance on controls, objectives close
-        a = ilqr_solve_fused(x, qc.C, qc.c, dx, lo, hi, lqr_iter=3,
-                             interpret=True)
-        b = ilqr_solve_fused(x, qc.C, qc.c, dx, lo, hi, lqr_iter=3,
-                             interpret=True, hoist_lin=True)
-        close = np.abs(np.asarray(a.us) - np.asarray(b.us)) < 1e-3
-        assert close.mean() > 0.99, close.mean()
-        np.testing.assert_allclose(
-            np.asarray(a.objs), np.asarray(b.objs), rtol=5e-4, atol=5e-4
-        )
-
-
-def test_hoist_lin_env_knob_through_mpc_solve(monkeypatch):
-    """DIFFMPC_HOIST_LIN=1 routes the fused dispatch through the hoisted
-    pre-pass at trace time (env read like DIFFMPC_PNQP_ENUM); controls
-    agree with the default at lqr_iter=1 (same fixed point)."""
-    import dataclasses as _dc
-
-    import numpy as np
-
-    from diffmpc_tpu import MPCConfig, QuadCost, mpc_solve
-    from diffmpc_tpu.models import PendulumDx
-
-    dx = PendulumDx.default(jnp.float32)
-    q, p = dx.get_true_obj()
-    cost = QuadCost(jnp.diag(q), p)
-    config = MPCConfig(
-        n_state=3, n_ctrl=1, T=6, lqr_iter=1, eps=0.0,
-        exit_unconverged=False, detach_unconverged=False,
-        use_pallas=True, pallas_interpret=True, dtype=jnp.float32,
-    )
-    rng = np.random.default_rng(5)
-    th = rng.uniform(-np.pi, np.pi, 512)
-    x = jnp.asarray(
-        np.stack([np.cos(th), np.sin(th), rng.uniform(-1, 1, 512)], -1),
-        jnp.float32,
-    )
-    base = mpc_solve(config, x, cost, dx, u_lower=-2.0, u_upper=2.0)
-    monkeypatch.setenv("DIFFMPC_HOIST_LIN", "1")
-    hoist = mpc_solve(config, x, cost, dx, u_lower=-2.0, u_upper=2.0)
-    np.testing.assert_allclose(
-        np.asarray(base.us), np.asarray(hoist.us), atol=2e-5
-    )

@@ -1,5 +1,5 @@
 """Fused Pallas KKT backward vs the XLA composite backward (interpret
-mode) — VERDICT r1 #1: the analytic backward pass gets its own kernel."""
+mode): the analytic backward pass gets its own kernel."""
 
 import jax
 import jax.numpy as jnp
@@ -35,35 +35,62 @@ def _random_residuals(rng, T, B, n, m, n_tight=0):
             j(gx, jnp.float32), j(gu, jnp.float32))
 
 
-def test_fused_kkt_wide_tile_matches_default():
-    """Round-3 tile-height auto-upgrade on the KKT backward: B=2048 picks
-    sublane 16 (kkt footprint fits 16 at T=8 n=3 m=1) and must agree with
-    a forced-default-height pass."""
+@pytest.mark.parametrize("tile", [32, 64])
+def test_fused_kkt_tile_width_does_not_change_results(tile, monkeypatch):
+    """The tile width is a layout choice only: a narrower tile must give
+    the same backward as the default, padding included (B=200)."""
     import diffmpc_tpu.ops.pallas.riccati as rmod
 
     rng = np.random.default_rng(812)
-    T, B, n, m = 8, 2048, 3, 1
-    assert rmod.pick_tile_sublane(
-        B, lambda tb: __import__(
-            "diffmpc_tpu.ops.pallas.kkt", fromlist=["kkt_vmem_bytes"]
-        ).kkt_vmem_bytes(T, n, m, tb)
-    ) == 16
+    T, B, n, m = 8, 200, 3, 1
     C, c, F, x_star, u_star, lo, hi, gx, gu = _random_residuals(
         rng, T, B, n, m, 100
     )
     tight = (u_star <= lo + 1e-6) | (u_star >= hi - 1e-6)
     r = jnp.concatenate([gx, jnp.where(tight, 0.0, gu)], axis=-1)
     tau = jnp.concatenate([x_star, u_star], axis=-1)
-    up = kkt_backward_fused(C, c, F, r, tau, tight, interpret=True)
-    orig = rmod.pick_tile_sublane
-    rmod.pick_tile_sublane = lambda *a: 8
-    try:
-        base = kkt_backward_fused(C, c, F, r, tau, tight, interpret=True)
-    finally:
-        rmod.pick_tile_sublane = orig
-    for a, b in zip(up, base):
+    base = kkt_backward_fused(C, c, F, r, tau, tight, interpret=True)
+    monkeypatch.setattr(rmod, "TILE", tile)
+    narrow = kkt_backward_fused(C, c, F, r, tau, tight, interpret=True)
+    for a, b in zip(narrow, base):
         np.testing.assert_allclose(
             np.asarray(a), np.asarray(b), rtol=1e-6, atol=1e-6
+        )
+
+
+@pytest.mark.parametrize(
+    "T,n,m,n_tight",
+    [
+        (40, 3, 1, 300),  # pendulum-shaped
+        (64, 5, 1, 300),  # cartpole-shaped
+        (128, 3, 2, 600),  # multi-control, long horizon
+        (1, 3, 1, 0),  # degenerate horizon
+    ],
+)
+def test_fused_kkt_long_horizon_matches_xla(T, n, m, n_tight):
+    """One KKT kernel serves every horizon: parity with the XLA composite
+    backward at the horizons (and the degenerate T=1) that once needed a
+    separate streaming kernel."""
+    rng = np.random.default_rng(900 + T * 100 + n * 10 + m)
+    B = 24
+    C, c, F, x_star, u_star, lo, hi, gx, gu = _random_residuals(
+        rng, T, B, n, m, n_tight
+    )
+    spec = LqrSpec(n_state=n, constrained=True, use_pallas=False)
+    res = (x_star[0], C, c, F, jnp.zeros((T, B, n)), x_star, u_star, lo, hi)
+    ref = _kkt_backward_impl(spec, res, (gx, gu))
+
+    tight = (u_star <= lo + spec.tight_eps) | (u_star >= hi - spec.tight_eps)
+    if n_tight:
+        assert bool(jnp.any(tight))
+    r = jnp.concatenate([gx, jnp.where(tight, 0.0, gu)], axis=-1)
+    tau = jnp.concatenate([x_star, u_star], axis=-1)
+    got = kkt_backward_fused(
+        C, c, F, r, tau, tight, reg=spec.back_eps, interpret=True
+    )
+    for g, w in zip(got, ref[:5]):
+        np.testing.assert_allclose(
+            np.asarray(g), np.asarray(w), rtol=5e-5, atol=5e-5
         )
 
 
@@ -132,15 +159,14 @@ def test_fused_kkt_shape_fuzz(seed):
 
 
 @pytest.mark.parametrize("B", [1, 3])
-@pytest.mark.parametrize("stream", [False, True])
-def test_fused_kkt_tiny_batch_gradient_parity(B, stream):
-    """ADVICE r2: removing the dispatch batch floor made the fused KKT
-    backward (resident AND streaming) reachable at tiny/odd B for the first
-    time — pin gradient parity vs the XLA composite backward there (the
-    kernels pad B up to a full tile; the padding rows must not contaminate
-    the real gradient rows)."""
-    rng = np.random.default_rng(820 + B)
-    T, n, m = 6, 3, 2
+@pytest.mark.parametrize("T", [6, 48])
+def test_fused_kkt_tiny_batch_gradient_parity(B, T):
+    """The dispatch has no batch floor, so the fused KKT backward runs at
+    tiny/odd B — pin gradient parity vs the XLA composite backward there
+    (the kernel pads B up to a full tile; the padding rows must not
+    contaminate the real gradient rows), at a short and a longer horizon."""
+    rng = np.random.default_rng(820 + B + T)
+    n, m = 3, 2
     C, c, F, x_star, u_star, lo, hi, gx, gu = _random_residuals(
         rng, T, B, n, m, n_tight=min(4, T * B * m // 2)
     )
@@ -152,17 +178,11 @@ def test_fused_kkt_tiny_batch_gradient_parity(B, stream):
     tight = (u_star <= lo + spec.tight_eps) | (u_star >= hi - spec.tight_eps)
     r = jnp.concatenate([gx, jnp.where(tight, 0.0, gu)], axis=-1)
     tau = jnp.concatenate([x_star, u_star], axis=-1)
-    if stream:
-        from diffmpc_tpu.ops.pallas.kkt_stream import kkt_backward_fused_stream
-
-        fused = kkt_backward_fused_stream
-    else:
-        fused = kkt_backward_fused
-    dx_init, dC, dc, dF, df = fused(
+    dx_init, dC, dc, dF, df = kkt_backward_fused(
         C, c, F, r, tau, tight, reg=spec.back_eps, interpret=True
     )
     tol = dict(rtol=3e-5, atol=3e-5)
-    msg = f"B={B} stream={stream}"
+    msg = f"B={B} T={T}"
     for got, want in ((dx_init, dx_init_r), (dc, dc_r), (dC, dC_r),
                       (df, df_r), (dF, dF_r)):
         np.testing.assert_allclose(
@@ -172,7 +192,7 @@ def test_fused_kkt_tiny_batch_gradient_parity(B, stream):
 
 def test_fused_kkt_dispatch_through_custom_vjp(monkeypatch):
     """End to end: grads through lqr_fixed_point ride the fused kernel when
-    use_pallas is forced and the batch fills a tile (interpret on CPU)."""
+    use_pallas is forced (interpret on CPU)."""
     import diffmpc_tpu.ops.pallas.kkt as kkt_mod
 
     calls = {"n": 0}

@@ -1,9 +1,9 @@
-"""Pallas kernels composed with shard_map (VERDICT r1 #3): the production
-multi-chip configuration — the fused solver kernels running inside a
-device-mesh program — exercised on the virtual 8-device CPU mesh via Mosaic
-interpret mode (``MPCConfig.pallas_interpret``). Real-hardware execution of
-the same composition is covered by the TPU-only test at the bottom and by
-``__graft_entry__.dryrun_multichip``."""
+"""Pallas kernels composed with shard_map: the multi-device
+configuration — the fused solver kernels running inside a device-mesh
+program — exercised on the virtual 8-device CPU mesh in interpret mode
+(``MPCConfig.pallas_interpret``). Execution of the same composition on the
+card is covered by the GPU test at the bottom, ``chip_smoke.py
+--four-cards`` and ``__graft_entry__.dryrun_multichip``."""
 
 import jax
 import jax.numpy as jnp
@@ -36,54 +36,51 @@ def _problem(B, T, seed=900):
     return dx, cost, x_init
 
 
-def test_wide_tile_pick_sees_local_batch_under_shard_map():
-    """The tile-height auto-upgrade (round 3) happens at trace time INSIDE
-    shard_map, so it keys on the per-device LOCAL batch: B_global=16384
-    over 8 devices -> local 2048 -> sublane 16 (not the 32 that 16384
-    would pick). Pinned by recording the height the kernel builder sees."""
+def test_kernel_grid_sees_local_batch_under_shard_map(monkeypatch):
+    """The kernel is built at trace time INSIDE shard_map, so its grid keys
+    on the per-device LOCAL batch: B_global=2048 over 8 devices -> 256 local
+    scenarios -> 2 programs of 128. Pinned by recording the grid the
+    launch sees."""
     import diffmpc_tpu.ops.pallas.ilqr as ilqr_mod
+    import diffmpc_tpu.ops.pallas.riccati as ric
 
+    monkeypatch.setattr(ric, "TILE", 128)
     mesh = make_mesh(jax.devices("cpu")[:8])
-    dx, cost, x_init = _problem(16384, 4)
+    dx, cost, x_init = _problem(2048, 4)
     config = MPCConfig(
         n_state=3, n_ctrl=1, T=4, lqr_iter=1, eps=0.0,
         exit_unconverged=False, detach_unconverged=False,
         use_pallas=True, pallas_interpret=True,
     )
     seen = []
-    orig = ilqr_mod._pick_sublane
+    orig = ilqr_mod.launch
 
-    def recording(B, T, n, m, **kw):
-        h = orig(B, T, n, m, **kw)
-        seen.append((B, h))
-        return h
+    def recording(kernel, ins, out_shapes, **kw):
+        seen.append((out_shapes[0].shape[0], kw["tile"]))
+        return orig(kernel, ins, out_shapes, **kw)
 
-    ilqr_mod._pick_sublane = recording
-    try:
-        assert orig(16384, 4, 3, 1) == 32  # global B would pick 32
+    monkeypatch.setattr(ilqr_mod, "launch", recording)
 
-        def local(x):
-            sol = mpc_solve(config, x, cost, dx, u_lower=-2.0, u_upper=2.0)
-            return sol.objs
+    def local(x):
+        sol = mpc_solve(config, x, cost, dx, u_lower=-2.0, u_upper=2.0)
+        return sol.objs
 
-        f = jax.jit(
-            jax.shard_map(
-                local, mesh=mesh, in_specs=(P(BATCH_AXIS),),
-                out_specs=P(BATCH_AXIS), check_vma=False,
-            )
+    f = jax.jit(
+        jax.shard_map(
+            local, mesh=mesh, in_specs=(P(BATCH_AXIS),),
+            out_specs=P(BATCH_AXIS), check_vma=False,
         )
-        objs = jax.block_until_ready(f(x_init))
-        assert bool(jnp.all(jnp.isfinite(objs)))
-    finally:
-        ilqr_mod._pick_sublane = orig
-    assert seen and all(b == 2048 and h == 16 for b, h in seen), seen
+    )
+    objs = jax.block_until_ready(f(x_init))
+    assert bool(jnp.all(jnp.isfinite(objs)))
+    assert seen and all(s == (2, 128) for s in seen), seen
 
 
 def test_fused_solve_inside_shard_map_matches_unsharded():
     """mpc_solve on the mega-kernel path, per-device inside shard_map,
     equals the same fused solve on the full batch (scenarios are
     independent, so sharding must be exact)."""
-    B, T = 4096, 4  # 512 per device — above the fused dispatch threshold
+    B, T = 4096, 4  # 512 per device
     dx, cost, x_init = _problem(B, T)
     config = MPCConfig(
         n_state=3, n_ctrl=1, T=T, lqr_iter=2, exit_unconverged=False,
@@ -104,9 +101,8 @@ def test_fused_solve_inside_shard_map_matches_unsharded():
             mesh=mesh,
             in_specs=(P(BATCH_AXIS),),
             out_specs=(P(None, BATCH_AXIS), P(None, BATCH_AXIS), P(BATCH_AXIS)),
-            # interpret-mode kernels trace their bodies inside the manual
-            # context where ref reads are VMA-typed inconsistently; compiled
-            # Mosaic kernels run under check_vma=True (real-TPU test below)
+            # kernel bodies are traced inside the manual context where ref
+            # reads are VMA-typed inconsistently (see the last test)
             check_vma=False,
         )
     )(shard_batch(mesh, x_init, 0))
@@ -150,15 +146,10 @@ def test_dp_train_step_on_pallas_path():
     )
 
 
-@pytest.mark.skipif(
-    jax.default_backend() == "cpu",
-    reason="real-TPU shard_map composition — run with "
-    "DIFFMPC_REAL_TPU_TESTS=1 python -m pytest tests/test_pallas_sharding.py"
-    " -k real_tpu (passed on hardware 2026-08-20, 1 passed in 156 s)",
-)
-def test_fused_solve_shard_map_real_tpu():
-    """1-device-mesh shard_map around the real Mosaic kernels (the VERDICT's
-    'single-TPU shard_map test closes most of this risk')."""
+@pytest.mark.gpu
+def test_fused_solve_shard_map_on_gpu(gpu_device):
+    """1-device-mesh shard_map around the compiled Triton kernels on the
+    card, bitwise against the unsharded solve."""
     B, T = 1024, 10
     dx, cost, x_init = _problem(B, T, seed=902)
     config = MPCConfig(
@@ -170,8 +161,9 @@ def test_fused_solve_shard_map_real_tpu():
         sol = mpc_solve(config, x, cost, dx, u_lower=-2.0, u_upper=2.0)
         return sol.xs, sol.us, sol.objs
 
+    x_init = jax.device_put(x_init, gpu_device)
     ref = jax.jit(solve_local)(x_init)
-    mesh = jax.make_mesh((1,), (BATCH_AXIS,))
+    mesh = jax.make_mesh((1,), (BATCH_AXIS,), devices=[gpu_device])
     sharded = jax.jit(
         jax.shard_map(
             solve_local,
@@ -181,12 +173,12 @@ def test_fused_solve_shard_map_real_tpu():
             check_vma=False,
         )
     )(x_init)
-    np.testing.assert_allclose(np.asarray(sharded[1]), np.asarray(ref[1]), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(sharded[2]), np.asarray(ref[2]), rtol=1e-5)
+    np.testing.assert_array_equal(np.asarray(sharded[1]), np.asarray(ref[1]))
+    np.testing.assert_array_equal(np.asarray(sharded[2]), np.asarray(ref[2]))
 
 
 def test_pallas_under_check_vma_true_jax_limitation():
-    """VERDICT r2 #8 follow-through: pallas_call under
+    """pallas_call under
     ``shard_map(check_vma=True)`` — pinned as a JAX limitation, not a
     library bug, by a STRICT xfail: the day an installed JAX types this
     correctly, this test FAILS (xpass) and the ``check_vma=False``
@@ -198,7 +190,7 @@ def test_pallas_under_check_vma_true_jax_limitation():
     REPLICATED loop index, and jax<=0.9's ``dynamic_slice`` VMA rule
     requires them to match — JAX's own error message says "Please open an
     issue ... as a temporary workaround pass the check_vma=False argument".
-    There is no pvary/pcast lowering in Mosaic either, so in-kernel
+    There is no pvary/pcast lowering in the kernel either, so in-kernel
     promotion is not available. vma-typed out_shapes (ops/pallas/
     riccati.out_struct) solve the OUTPUT typing; the body typing is JAX's.
     """

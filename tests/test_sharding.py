@@ -125,8 +125,7 @@ def test_dp_train_step_config5_ensemble_shape():
     sharded with the batch over all 8 devices, B_global=512 (64/device —
     the same per-device SHAPE class as 65k/8 on a real pod, smaller only in
     the tile count). Pins the exact composition the scale shape exercises:
-    sharded per-scenario param rows + replicated optimizer + pmean'd stats.
-    VERDICT r2 #4."""
+    sharded per-scenario param rows + replicated optimizer + pmean'd stats."""
     dtype = jnp.float32
     B, T = 512, 20
     dx = PendulumDx.default(dtype)
@@ -175,7 +174,7 @@ def test_dp_train_step_config5_ensemble_shape():
 
 
 def test_dp_train_step_f32_realistic_regime():
-    """VERDICT r1 #6: the realistic configuration — f32, default eps,
+    """the realistic configuration — f32, default eps,
     finite not_improved_lim, check_vma=True (training.py) — agrees between
     1 and 8 devices to stated tolerances. Unlike the f64 exact test above,
     discrete branches (line-search accepts, convergence exits) may flip on

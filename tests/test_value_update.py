@@ -22,7 +22,7 @@ import pytest
 from diffmpc_tpu.ops.pallas import riccati as R
 from diffmpc_tpu.ops.pnqp import pnqp
 
-S = 2  # sublane count for entry tiles (small: CPU-interpret cost)
+S = 2  # rows of the entry arrays (the helpers are shape-agnostic)
 B = S * 128
 
 
@@ -240,8 +240,8 @@ def test_mega_kernel_simplified_vs_full_update(monkeypatch):
         )
         return np.asarray(fr.us), np.asarray(fr.objs)
 
-    # default is the full form (round-4 decision: the simplification
-    # measured neutral on hardware); force the simplified build explicitly
+    # default is the full form (the simplification is off); force the
+    # simplified build explicitly
     monkeypatch.setattr(R, "VALUE_UPDATE_EXACT_REG", 1e-6)
     u1, o1 = solve()
     monkeypatch.setattr(R, "VALUE_UPDATE_EXACT_REG", -1.0)

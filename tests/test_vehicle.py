@@ -192,7 +192,7 @@ def test_fused_dispatch_and_interpret_parity():
     q, p = dx.get_true_obj()
     cost = QuadCost(jnp.diag(q), p)
     assert _would_use_fused(
-        config_p, B, dx, is_quad=True, constrained=True, is_lin=False
+        config_p, dx, is_quad=True, constrained=True, is_lin=False
     )
     x0 = _x_init(B, seed=2)
     lo = jnp.asarray(U_LO, jnp.float32)
